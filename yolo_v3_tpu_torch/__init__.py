@@ -1,0 +1,13 @@
+"""yolo_v3_tpu_torch: the PyTorch + CUDA port of ``yolo_v3_tpu``.
+
+Module names mirror the JAX package (``models/darknet.py``,
+``ops/postprocess.py``, ``detector.py``, ...).  Public functions keep the
+JAX layouts (NHWC images and raw heads, HWIO conv weights) so the two
+packages compare like with like; the JAX package stays the reference.
+
+The residual blocks run on a hand-written Hopper kernel
+(``csrc/fused_res_block.cu``), built with ``nvcc`` at first CUDA use.
+Nothing is compiled at import, so the package imports on a CPU-only host.
+"""
+
+__version__ = "0.1.0"

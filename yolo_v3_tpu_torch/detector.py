@@ -1,0 +1,147 @@
+"""High-level detection API: images in, boxes out.
+
+Port of ``yolo_v3_tpu/detector.py`` for bf16 and fp32 serving.  On the
+device: letterbox (cubic resize as two matmuls), the BN-folded forward with
+every residual block on the fused kernel, per-scale display postprocess with
+class-wise greedy NMS, and the mapping of boxes back to original-image
+pixels.  Only the compact [B, M, 8] result returns to the host.
+
+Output rows per image: [cls, x, y, w, h, prob, obj], xywh in original-image
+pixels.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from yolo_v3_tpu_torch.models import darknet as D
+from yolo_v3_tpu_torch.models import weights as W
+from yolo_v3_tpu_torch.ops import boxes as B
+from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+from yolo_v3_tpu_torch.ops.letterbox import letterbox_device
+from yolo_v3_tpu_torch.ops.postprocess import detections_to_lists, postprocess_from_raws
+from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def detect_fn(
+    model: D.YoloNetFolded,
+    x: torch.Tensor,
+    org_dims: torch.Tensor,
+    config: YoloConfig,
+    conf_thr: float,
+    nms_thr: float,
+    use_nms: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    res_block=fused_res_block,
+) -> torch.Tensor:
+    """Device pipeline on a folded model (display mode).
+
+    ``x``: [B, H, W, 3] float, letterboxed to the net input;
+    ``org_dims``: [B, 2] (org_w, org_h).  Returns [B, M, 8]: x, y, w, h
+    (original-image pixels), obj, prob, cls, valid.
+    """
+    img_dim = x.shape[1]
+    raws = model(x.to(compute_dtype), res_block=res_block)
+    res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
+                                nms_thr=nms_thr, use_nms=use_nms)
+    org = org_dims.to(torch.float32)
+    xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
+                                img_dim, img_dim, is_letterbox=True)
+    return torch.cat([xywh, res[..., 4:]], dim=-1)
+
+
+class Detector:
+    """Holds the folded model on one device.
+
+    ``precision``: "bf16" (default) or "fp32".  ``device``: where the model
+    and the whole pipeline run; on a CUDA device the residual blocks run on
+    the hand-written kernel.
+    """
+
+    def __init__(
+        self,
+        params,
+        state,
+        config: YoloConfig = YoloConfig(),
+        precision: str = "bf16",
+        device="cpu",
+    ):
+        if precision == "int8":
+            raise NotImplementedError(
+                "precision='int8' is not ported yet: the int8 serving path "
+                "(models/quantized.py and its kernels) is ROADMAP queue A, "
+                "item 6, and queue B items 1, 2, 3 and 5")
+        if precision not in _DTYPES:
+            raise ValueError(f"precision must be 'bf16' or 'fp32', got {precision!r}")
+        self.config = config
+        self.precision = precision
+        self.compute_dtype = _DTYPES[precision]
+        self.device = torch.device(device)
+        folded = D.fold_batchnorm(D.cast_params(params, torch.float32, self.device),
+                                  D.cast_params(state, torch.float32, self.device))
+        self.model = D.YoloNetFolded(D.cast_params(folded, self.compute_dtype)).eval()
+
+    # -- constructors -----------------------------------------------------
+
+    @classmethod
+    def from_darknet_weights(cls, path: str, config: YoloConfig = YoloConfig(),
+                             **kw) -> "Detector":
+        params, state = D.init_yolonet(torch.Generator().manual_seed(0),
+                                       config.num_classes)
+        params, state, _, _ = W.load_darknet_weights(params, state, path)
+        return cls(params, state, config, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, config: YoloConfig = YoloConfig(),
+                        **kw) -> "Detector":
+        """Load a plain {params, state} npz pytree (either package's)."""
+        tree, _ = W.load_pytree(path)
+        if "params" not in tree or "state" not in tree:
+            raise ValueError(
+                f"{path}: not a {{params, state}} pytree npz (top-level keys "
+                f"{sorted(tree)[:8]})")
+        return cls(tree["params"], tree["state"], config, **kw)
+
+    # -- inference --------------------------------------------------------
+
+    def preprocess(self, images: Sequence[np.ndarray], dim: Optional[int] = None):
+        """HWC uint8 RGB images -> (letterboxed [B, dim, dim, 3] float32,
+        org_dims [B, 2]), both on the detector's device."""
+        dim = dim or self.config.img_dim
+        org = torch.tensor([[im.shape[1], im.shape[0]] for im in images],
+                           dtype=torch.float32, device=self.device)
+        batch = torch.stack([
+            letterbox_device(torch.from_numpy(np.ascontiguousarray(im)).to(self.device),
+                             (dim, dim))
+            for im in images])
+        return batch, org
+
+    @torch.inference_mode()
+    def detect(
+        self,
+        images: Sequence[np.ndarray],
+        conf_thr: Optional[float] = None,
+        nms_thr: Optional[float] = None,
+        use_nms: bool = True,
+        dim: Optional[int] = None,
+        res_block=fused_res_block,
+    ) -> List[np.ndarray]:
+        """Detect objects in HWC uint8 RGB images.
+
+        Returns, per image, a [n, 7] array of rows
+        [cls, x, y, w, h, prob, obj] in original-image pixels.
+        ``res_block`` picks the residual-block implementation (the kernel
+        wrapper by default; ``fused_res_block_ref`` for the plain version).
+        """
+        conf_thr = self.config.conf_thr if conf_thr is None else conf_thr
+        nms_thr = self.config.nms_thr if nms_thr is None else nms_thr
+        x, org = self.preprocess(images, dim)
+        res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
+                        use_nms=use_nms, compute_dtype=self.compute_dtype, res_block=res_block)
+        # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
+        return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

@@ -1,0 +1,301 @@
+"""YOLOv3 model core in PyTorch: Darknet-53 backbone + 3-scale heads.
+
+Port of ``yolo_v3_tpu/models/darknet.py`` (init, BN folding and the folded
+inference forward).  Parameters are nested dicts of tensors with the JAX
+package's tree layout and HWIO conv weights, so the same trees move between
+the packages (``models/weights.py``).  :class:`YoloNetFolded` takes NHWC
+images and returns NHWC raw heads; inside, activations are NCHW tensors in
+``torch.channels_last`` memory format, which is physically NHWC.
+
+Stem, downsample, head, upsample and detection convs run on ``F.conv2d``.
+Every residual block runs on :func:`~yolo_v3_tpu_torch.ops.fused_res_block.
+fused_res_block`, the hand-written CUDA kernel on a card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+
+Params = Dict[str, Any]
+State = Dict[str, Any]
+
+# Residual-block counts of the 5 darknet-53 stages (reference darknet.py:179).
+DARKNET53_BLOCKS: Tuple[int, ...] = (1, 2, 8, 8, 4)
+
+LEAKY_SLOPE = 0.1
+BN_EPS = 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, bound, dtype, device):
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return ((u * 2 - 1) * bound).to(device=device, dtype=dtype)
+
+
+def _init_cb(gen, ks, cin, cout, dtype, device):
+    """conv + batchnorm block: Kaiming-uniform fan-in HWIO weight (torch
+    Conv2d's default scale), identity BN."""
+    bound = math.sqrt(1.0 / (cin * ks * ks))
+    p = {
+        "w": _uniform(gen, (ks, ks, cin, cout), bound, dtype, device),
+        "bn": {"scale": torch.ones(cout, dtype=dtype, device=device),
+               "bias": torch.zeros(cout, dtype=dtype, device=device)},
+    }
+    s = {"mean": torch.zeros(cout, dtype=dtype, device=device),
+         "var": torch.ones(cout, dtype=dtype, device=device)}
+    return p, s
+
+
+def _init_bias_conv(gen, ks, cin, cout, dtype, device):
+    """Final detection conv: bias on, no BN."""
+    bound = math.sqrt(1.0 / (cin * ks * ks))
+    return {"w": _uniform(gen, (ks, ks, cin, cout), bound, dtype, device),
+            "b": _uniform(gen, (cout,), bound, dtype, device)}
+
+
+def _init_head(gen, cin, nfilter, num_classes, dtype, device):
+    params: Params = {}
+    state: State = {}
+    nin = cin
+    for i in range(3):
+        params[f"conv{2*i}"], state[f"conv{2*i}"] = _init_cb(
+            gen, 1, nin, nfilter, dtype, device)
+        params[f"conv{2*i+1}"], state[f"conv{2*i+1}"] = _init_cb(
+            gen, 3, nfilter, nfilter * 2, dtype, device)
+        nin = nfilter * 2
+    params["det"] = _init_bias_conv(gen, 1, nin, (num_classes + 5) * 3,
+                                    dtype, device)
+    return params, state
+
+
+def init_yolonet(
+    generator: torch.Generator,
+    num_classes: int = 80,
+    blocks: Tuple[int, ...] = DARKNET53_BLOCKS,
+    dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> Tuple[Params, State]:
+    """Full 3-scale YOLOv3 params/state trees, drawn from ``generator`` (on
+    the CPU, so a seed gives the same weights on every device).  Same tree
+    structure and init scales as the JAX ``init_yolonet``; the random
+    numbers differ, since the two frameworks' generators do."""
+    params: Params = {}
+    state: State = {}
+    bk_p: Params = {}
+    bk_s: State = {}
+    bk_p["stem"], bk_s["stem"] = _init_cb(generator, 3, 3, 32, dtype, device)
+    nin = 32
+    for i, nblk in enumerate(blocks):
+        sp: Params = {}
+        ss: State = {}
+        sp["down"], ss["down"] = _init_cb(generator, 3, nin, nin * 2, dtype, device)
+        nout = nin * 2
+        for b in range(nblk):
+            c1, s1 = _init_cb(generator, 1, nout, nout // 2, dtype, device)
+            c2, s2 = _init_cb(generator, 3, nout // 2, nout, dtype, device)
+            sp[f"res{b}"] = {"conv1": c1, "conv2": c2}
+            ss[f"res{b}"] = {"conv1": s1, "conv2": s2}
+        bk_p[f"stage{i}"], bk_s[f"stage{i}"] = sp, ss
+        nin = nout
+    params["backbone"], state["backbone"] = bk_p, bk_s
+    params["head0"], state["head0"] = _init_head(
+        generator, 1024, 512, num_classes, dtype, device)
+    up0 = _init_cb(generator, 1, 512, 256, dtype, device)
+    params["up0"], state["up0"] = {"conv": up0[0]}, {"conv": up0[1]}
+    params["head1"], state["head1"] = _init_head(
+        generator, 768, 256, num_classes, dtype, device)
+    up1 = _init_cb(generator, 1, 256, 128, dtype, device)
+    params["up1"], state["up1"] = {"conv": up1[0]}, {"conv": up1[1]}
+    params["head2"], state["head2"] = _init_head(
+        generator, 384, 128, num_classes, dtype, device)
+    return params, state
+
+
+# ---------------------------------------------------------------------------
+# BN folding
+# ---------------------------------------------------------------------------
+
+def fold_batchnorm(params: Params, state: State) -> Params:
+    """Fold every conv+BN pair into conv(w', b'): w' = w * scale/sqrt(var+eps),
+    b' = bias - mean * scale/sqrt(var+eps).  Detection convs pass through."""
+
+    def fold(p, s):
+        if "bn" in p:
+            inv = 1.0 / torch.sqrt(s["var"] + BN_EPS) * p["bn"]["scale"]
+            return {"w": p["w"] * inv, "b": p["bn"]["bias"] - s["mean"] * inv}
+        if "b" in p:
+            return {"w": p["w"], "b": p["b"]}
+        return {k: fold(p[k], s.get(k, {})) for k in p}
+
+    return fold(params, state)
+
+
+def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def cast_params(params: Params, dtype: torch.dtype, device=None) -> Params:
+    return map_tree(lambda a: a.to(device=device, dtype=dtype), params)
+
+
+def _stage_blocks(stage_params: Params) -> int:
+    return sum(1 for k in stage_params if k.startswith("res"))
+
+
+def _num_stages(backbone_params: Params) -> int:
+    return sum(1 for k in backbone_params if k.startswith("stage"))
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample of an NHWC tensor."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Folded inference forward
+# ---------------------------------------------------------------------------
+
+class _ConvBias(nn.Module):
+    """Conv + bias (+ LeakyReLU) on NCHW channels_last activations, from an
+    HWIO weight; the output keeps the input's dtype."""
+
+    def __init__(self, p: Params, stride: int = 1, leaky: bool = True):
+        super().__init__()
+        w = p["w"]
+        self.register_buffer("weight", w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last))
+        self.register_buffer("bias", p["b"].clone())
+        self.stride = stride
+        self.pad = (w.shape[0] - 1) // 2
+        self.leaky = leaky
+
+    def forward(self, x):
+        y = F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
+        return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
+
+
+class _ResBlock(nn.Module):
+    """Residual block weights in the kernel's layout: w1 [C, Cmid], w2 HWIO."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        w1 = p["conv1"]["w"]
+        self.register_buffer("w1", w1.reshape(w1.shape[2], w1.shape[3]).contiguous())
+        self.register_buffer("b1", p["conv1"]["b"].contiguous())
+        self.register_buffer("w2", p["conv2"]["w"].contiguous())
+        self.register_buffer("b2", p["conv2"]["b"].contiguous())
+
+    def forward(self, x, res_block):
+        y = x.permute(0, 2, 3, 1)                   # NHWC view, no copy
+        if not y.is_contiguous():
+            y = y.contiguous()
+        out = res_block(y, self.w1, self.b1, self.w2, self.b2)
+        return out.permute(0, 3, 1, 2)              # NCHW, channels_last
+
+
+class _Head(nn.Module):
+    def __init__(self, hp: Params):
+        super().__init__()
+        self.convs = nn.ModuleList(_ConvBias(hp[f"conv{i}"]) for i in range(6))
+        self.det = _ConvBias(hp["det"], leaky=False)
+
+    def forward(self, x):
+        for i, conv in enumerate(self.convs):
+            x = conv(x)
+            if i == 4:
+                branch = x
+        return self.det(x), branch
+
+
+class YoloNetFolded(nn.Module):
+    """Inference YOLOv3 on BN-folded params (see :func:`fold_batchnorm`),
+    the port of the JAX ``apply_yolonet_folded`` on non-s2d params.
+
+    ``forward(x)`` takes an NHWC image batch in the params' dtype and
+    returns the three raw heads, coarse first, each
+    [B, H/s, W/s, 3*(5+C)] NHWC.  ``res_block`` selects the residual-block
+    implementation; the default is the kernel wrapper.
+    """
+
+    def __init__(self, params: Params):
+        super().__init__()
+        bk = params["backbone"]
+        self.stem = _ConvBias(bk["stem"])
+        self.downs = nn.ModuleList()
+        self.stages = nn.ModuleList()
+        for i in range(_num_stages(bk)):
+            sp = bk[f"stage{i}"]
+            self.downs.append(_ConvBias(sp["down"], stride=2))
+            self.stages.append(nn.ModuleList(
+                _ResBlock(sp[f"res{b}"]) for b in range(_stage_blocks(sp))))
+        self.head0 = _Head(params["head0"])
+        self.up0 = _ConvBias(params["up0"]["conv"])
+        self.head1 = _Head(params["head1"])
+        self.up1 = _ConvBias(params["up1"]["conv"])
+        self.head2 = _Head(params["head2"])
+
+    @property
+    def num_res_blocks(self) -> int:
+        return sum(len(s) for s in self.stages)
+
+    def forward(self, x: torch.Tensor, res_block=fused_res_block):
+        y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        y = self.stem(y)
+        routes: List[torch.Tensor] = []
+        for i, (down, blocks) in enumerate(zip(self.downs, self.stages)):
+            y = down(y)
+            for blk in blocks:
+                y = blk(y, res_block)
+            if i >= 2:
+                routes.append(y)
+        c3, c4, c5 = routes
+
+        det0, br0 = self.head0(c5)
+        y = torch.cat([_upsample_nchw(self.up0(br0)), c4], dim=1)
+        det1, br1 = self.head1(y)
+        y = torch.cat([_upsample_nchw(self.up1(br1)), c3], dim=1)
+        det2, _ = self.head2(y)
+        return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2))
+
+
+def _upsample_nchw(x: torch.Tensor) -> torch.Tensor:
+    return upsample2x_nearest(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Canonical conv ordering — the contract the darknet weight codec relies on.
+# ---------------------------------------------------------------------------
+
+def conv_layer_paths(
+    num_stages: Optional[int] = None,
+    blocks: Tuple[int, ...] = DARKNET53_BLOCKS,
+) -> List[Tuple[str, ...]]:
+    """Paths of all conv blocks in darknet cfg order: backbone, head0, up0,
+    head1, up1, head2 (the JAX ``conv_layer_paths``)."""
+    if num_stages is None:
+        num_stages = len(blocks)
+    paths: List[Tuple[str, ...]] = [("backbone", "stem")]
+    for i in range(num_stages):
+        paths.append(("backbone", f"stage{i}", "down"))
+        for b in range(blocks[i]):
+            paths.append(("backbone", f"stage{i}", f"res{b}", "conv1"))
+            paths.append(("backbone", f"stage{i}", f"res{b}", "conv2"))
+    for h, up in (("head0", "up0"), ("head1", "up1"), ("head2", None)):
+        for i in range(6):
+            paths.append((h, f"conv{i}"))
+        paths.append((h, "det"))
+        if up is not None:
+            paths.append((up, "conv"))
+    return paths

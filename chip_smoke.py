@@ -1,20 +1,25 @@
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile every kernel of the path from ``yolo_v3_tpu_torch/csrc``;
-3. kernel vs plain: the fused residual-block kernel against its plain
-   PyTorch version at the 5 residual-block shapes of YOLOv3-416 at batch 8,
-   in fp32 and bf16, with CUDA-event times of both;
-4. main path: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
+2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``,
+   one nvcc per source, all started together;
+3. kernel vs plain, with the device time of both (CUDA-graph replay): the fused residual-block
+   kernel at the 5 residual-block shapes of YOLOv3-416 at batch 8 in fp32 and
+   bf16; the int8 kernels (conv1x1_p2d, conv3x3_p2d, their composition
+   res_block_p2d, fused_entry) bit-equal at every shape the int8 forward
+   launches them at batch 8;
+4. main paths: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
    ``torch.Generator`` seed 0, written as darknet ``.weights`` and loaded
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
-   images of assorted sizes in bf16 and fp32, with the kernel's launch count
-   read around each run and the outputs checked against the plain path;
-5. timing: e2e ``detect`` images/sec at batch 8 and forward ms.
+   images of assorted sizes in bf16, fp32 and int8 (calibrated on the same
+   8 images), each path's launch counts set to 0 just before its run and
+   read just after, and its outputs checked against the plain path;
+5. timing: e2e ``detect`` images/sec at batch 8, forward ms and the
+   preprocess / forward / postprocess split, per precision.
 
 The line before the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA; imports no JAX.
@@ -26,6 +31,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +44,27 @@ IMAGE_HW = ((480, 640), (375, 500), (416, 416), (300, 700))
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),      # summation order
        torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}  # 2 bf16 ulps
 NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
+# Every padded-2D conv the int8 forward launches at 416: (taps, grid H = W,
+# C, N, residual, out) -> launches per forward.  Residual-block convs first
+# (conv1 C -> C/2, conv2 C/2 -> C + residual), then heads, dets and ups.
+INT8_CONVS = {
+    (1, 104, 128, 64, False, "i8"): 2, (1, 52, 256, 128, False, "i8"): 8 + 2,
+    (1, 26, 512, 256, False, "i8"): 8 + 2, (1, 13, 1024, 512, False, "i8"): 4 + 3,
+    (9, 104, 64, 128, True, "i8"): 2, (9, 52, 128, 256, True, "i8"): 8,
+    (9, 26, 256, 512, True, "i8"): 8, (9, 13, 512, 1024, True, "i8"): 4,
+    (9, 13, 512, 1024, False, "i8"): 3, (9, 26, 256, 512, False, "i8"): 3,
+    (9, 52, 128, 256, False, "i8"): 3,
+    (1, 26, 768, 256, False, "i8"): 1, (1, 52, 384, 128, False, "i8"): 1,
+    (1, 13, 1024, 255, False, "bf16"): 1, (1, 26, 512, 255, False, "bf16"): 1,
+    (1, 52, 256, 255, False, "bf16"): 1,
+    (1, 13, 512, 256, False, "i8"): 1, (1, 26, 256, 128, False, "i8"): 1,
+}
+# residual blocks of the int8 forward: (grid, C) -> blocks (stage 0 is in
+# the entry)
+INT8_RES = {(104, 128): 2, (52, 256): 8, (26, 512): 8, (13, 1024): 4}
+INT8_LAUNCHES = {"fused_entry": 1, "conv1x1_p2d": 36, "conv3x3_p2d": 31,
+                 "res_block_p2d": 22}
 
 
 def log(msg):
@@ -70,6 +97,51 @@ def cuda_ms(fn, iters=10, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10, warmup=3):
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph and replayed between two events, so the host's launch time, which
+    exceeds a short kernel's, does not enter (events around back-to-back
+    eager calls would read it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def busy_ms(fn, iters=5):
+    """Summed device time of the kernels and copies one call of ``fn``
+    launches (torch.profiler), or None where the profiler returned no
+    device events (it does so now and then on short windows)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1000 if us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
 def block_inputs(h, c, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     cmid = c // 2
@@ -84,8 +156,8 @@ def block_inputs(h, c, dtype, seed):
 
 def check_kernel(card):
     """Phase 3: kernel vs plain at every residual-block shape; returns
-    per-dtype {max_abs_err, ms, plain_ms} with ms summed over one forward's
-    23 blocks."""
+    per-dtype {max_abs_err, ms, plain_ms}, device ms summed over one
+    forward's 23 blocks."""
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
 
     summary = {}
@@ -98,8 +170,8 @@ def check_kernel(card):
             want = fused_res_block_ref(*args)
             torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
             e = (got.float() - want.float()).abs().max().item()
-            k_ms = cuda_ms(lambda: fused_res_block(*args))
-            p_ms = cuda_ms(lambda: fused_res_block_ref(*args))
+            k_ms = device_ms(lambda: fused_res_block(*args))
+            p_ms = device_ms(lambda: fused_res_block_ref(*args))
             log(f"kernel {NAMES[dtype]} [{BATCH},{h},{h},{c}] max_abs_err={e:.3e} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} x{n} blocks "
                 f"tol={TOL[dtype]} | {card}")
@@ -107,6 +179,87 @@ def check_kernel(card):
         summary[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         log(f"kernel {NAMES[dtype]} per-forward residual blocks: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} | {card}")
+    return summary
+
+
+def i8(gen, shape, lo=-20, hi=20):
+    return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int8).to("cuda")
+
+
+def scale_bias(gen, n, k):
+    """Multipliers that put leaky(acc*m+b) mostly inside +-127 for K=k."""
+    m = (0.5 + torch.rand(n, generator=gen)) * 40.0 / (k ** 0.5 * 133.0)
+    return m.to("cuda"), (3.0 * torch.randn(n, generator=gen)).to("cuda")
+
+
+def check_int8_kernels(card):
+    """Phase 3, int8: each kernel bit-equal to its plain version at every
+    shape the int8 forward launches it at batch 8; returns per-kernel
+    {max_abs_err, ms, plain_ms}, device ms summed over one forward's
+    launches."""
+    from yolo_v3_tpu_torch.ops import entry_kernel as EK
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+
+    gen = torch.Generator().manual_seed(1)
+    summary = {}
+
+    def record(name, what, got, want, run, run_plain, n):
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"{name} {what}: kernel and plain differ")
+        err = (got.float() - want.float()).abs().max().item()
+        k_ms, p_ms = device_ms(run), device_ms(run_plain)
+        log(f"kernel {name} {what} max_abs_err={err:.1e} (bit-equal) kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} x{n} | {card}")
+        acc = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["ms"] += n * k_ms
+        acc["plain_ms"] += n * p_ms
+
+    for (taps, hw, c, n, residual, out), count in INT8_CONVS.items():
+        x2d = FC.pack_p2d(i8(gen, (BATCH, hw, hw, c)))
+        w = i8(gen, (3, 3, c, n) if taps == 9 else (c, n))
+        m, b = scale_bias(gen, n, taps * c)
+        res = i8(gen, (x2d.shape[0], n), -127, 128) if residual else None
+        _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        fn, ref = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if taps == 9
+                   else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
+        kw = dict(leaky=out == "i8", residual=res, res_scale=0.7,
+                  out_dtype=torch.int8 if out == "i8" else torch.bfloat16)
+        got = fn(x2d, w, m, b, hp, wp, **kw)
+        torch.cuda.synchronize()
+        record(f"{fn.__name__}_int8",
+               f"[{BATCH},{hw},{hw},{c}]->{n} {out}{' +res' if residual else ''}",
+               got, ref(x2d, w, m, b, hp, wp, **kw),
+               lambda: fn(x2d, w, m, b, hp, wp, **kw),
+               lambda: ref(x2d, w, m, b, hp, wp, **kw), count)
+
+    for (hw, c), count in INT8_RES.items():
+        x2d = FC.pack_p2d(i8(gen, (BATCH, hw, hw, c)))
+        w1, w2 = i8(gen, (c, c // 2)), i8(gen, (3, 3, c // 2, c))
+        (s1, b1), (s2, b2) = scale_bias(gen, c // 2, c), scale_bias(gen, c, 9 * c // 2)
+        _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        args = (x2d, w1, s1, b1, w2, s2, b2, hp, wp)
+        got = FC.res_block_p2d(*args, res_scale=0.8)
+        torch.cuda.synchronize()
+        record("res_block_p2d_int8", f"[{BATCH},{hw},{hw},{c}]", got,
+               FC.res_block_p2d_ref(*args, res_scale=0.8),
+               lambda: FC.res_block_p2d(*args, res_scale=0.8),
+               lambda: FC.res_block_p2d_ref(*args, res_scale=0.8), count)
+
+    xb = i8(gen, (BATCH, 210, 210, 12), -127, 128)
+    qs2d = {}
+    for name, (kh, kw_, cin, cout) in EK.SHAPES.items():
+        m, b = scale_bias(gen, cout, kh * kw_ * cin)
+        qs2d[name] = {"w": i8(gen, (cin, cout) if kh == 1 else (kh, kw_, cin, cout)),
+                      "m": m, "b": b}
+    got = EK.fused_entry(xb, qs2d, 0.6)
+    torch.cuda.synchronize()
+    record("fused_entry_int8", f"[{BATCH},210,210,12]", got,
+           EK.fused_entry_ref(xb, qs2d, 0.6), lambda: EK.fused_entry(xb, qs2d, 0.6),
+           lambda: EK.fused_entry_ref(xb, qs2d, 0.6), 1)
+    for name, acc in summary.items():
+        log(f"kernel {name} per forward: kernel_ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} | {card}")
     return summary
 
 
@@ -169,12 +322,13 @@ def same_rows(a, b, box_atol=1e-2, prob_atol=1e-4):
     return True
 
 
-def main_path(card, weights_path):
-    """Phase 4 and 5.  Returns {dtype: launches in that dtype's main run}."""
+def main_path(card, weights_path, imgs):
+    """Phases 4 and 5 in bf16 and fp32.  Returns ({dtype: launches in that
+    dtype's main run}, the fp32 detection rows)."""
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import weights as W
-    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
     from yolo_v3_tpu_torch.ops.postprocess import postprocess_from_raws
     from yolo_v3_tpu_torch.utils.config import YoloConfig
 
@@ -183,7 +337,6 @@ def main_path(card, weights_path):
     params, state = D.init_yolonet(gen, config.num_classes, blocks=DARKNET53_BLOCKS)
     spread_batchnorm(params, state, gen)
     W.save_darknet_weights(params, state, weights_path)
-    imgs = make_images()
     n_blocks = sum(DARKNET53_BLOCKS)
     launches = {}
     for precision, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
@@ -198,6 +351,8 @@ def main_path(card, weights_path):
         check(launches[dtype] == n_blocks,
               f"{launches[dtype]} kernel launches in one forward, want {n_blocks}")
         check_rows(rows, imgs, config.num_classes)
+        if dtype == torch.float32:
+            fp32_rows = rows
         n_det = [len(r) for r in rows]
         log(f"main {precision}: detect(8 images) ok, kernel launches={launches[dtype]} "
             f"(= {n_blocks} residual blocks), detections per image={n_det} | {card}")
@@ -206,7 +361,7 @@ def main_path(card, weights_path):
         x, _ = det.preprocess(imgs)
         with torch.inference_mode():
             heads = det.model(x.to(dtype))
-            plain = det.model(x.to(dtype), res_block=fused_res_block_ref)
+            plain = det.model(x.to(dtype), plain=True)
         for i, (h, p) in enumerate(zip(heads, plain)):
             check(tuple(h.shape) == (BATCH, 13 * 2 ** i, 13 * 2 ** i, 255),
                   f"head{i} shape {tuple(h.shape)}")
@@ -222,7 +377,7 @@ def main_path(card, weights_path):
             log(f"main {precision}: head{i} {tuple(h.shape)} kernel vs plain "
                 f"max_abs_err={err:.3e} max|head|={scale:.3e} ({tol}) | {card}")
         if dtype == torch.float32:
-            plain_rows = det.detect(imgs, res_block=fused_res_block_ref)
+            plain_rows = det.detect(imgs, plain=True)
             check(all(same_rows(a, b) for a, b in zip(rows, plain_rows)),
                   "fp32 detections equal on kernel and plain paths")
             log("main fp32: detection rows equal on kernel and plain paths "
@@ -232,21 +387,118 @@ def main_path(card, weights_path):
         with torch.inference_mode():
             xd = x.to(dtype)
             fwd_ms = cuda_ms(lambda: det.model(xd))
-            fwd_plain_ms = cuda_ms(lambda: det.model(xd, res_block=fused_res_block_ref))
+            fwd_busy = busy_ms(lambda: det.model(xd))
+            fwd_plain_ms = cuda_ms(lambda: det.model(xd, plain=True))
             pre_ms = cuda_ms(lambda: det.preprocess(imgs))
             post_ms = cuda_ms(lambda: postprocess_from_raws(
                 heads, config, config.img_dim, config.conf_thr, config.nms_thr))
         e2e_ms = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
-        e2e_plain_ms = cuda_ms(lambda: det.detect(imgs, res_block=fused_res_block_ref),
+        e2e_plain_ms = cuda_ms(lambda: det.detect(imgs, plain=True),
                                iters=5, warmup=2)
         log(f"time {precision} bs{BATCH} 416: e2e detect {BATCH * 1000 / e2e_ms:.2f} imgs/sec "
             f"({e2e_ms:.3f} ms/batch), forward {fwd_ms:.3f} ms; plain path: "
             f"{BATCH * 1000 / e2e_plain_ms:.2f} imgs/sec ({e2e_plain_ms:.3f} ms/batch), "
             f"forward {fwd_plain_ms:.3f} ms | {card}")
         log(f"time {precision} bs{BATCH} 416 kernel path split: preprocess "
-            f"{pre_ms:.3f} ms, forward {fwd_ms:.3f} ms, postprocess {post_ms:.3f} ms | {card}")
+            f"{pre_ms:.3f} ms, forward {fwd_ms:.3f} ms (device busy {fmt_ms(fwd_busy)}), "
+            f"postprocess {post_ms:.3f} ms | {card}")
         del det
         torch.cuda.empty_cache()
+    return launches, fp32_rows
+
+
+def iou_xywh(a, b):
+    """IoU of one [x, y, w, h] box against rows [n, 4]."""
+    ix = np.clip(np.minimum(a[0] + a[2], b[:, 0] + b[:, 2]) - np.maximum(a[0], b[:, 0]), 0, None)
+    iy = np.clip(np.minimum(a[1] + a[3], b[:, 1] + b[:, 3]) - np.maximum(a[1], b[:, 1]), 0, None)
+    inter = ix * iy
+    return inter / (a[2] * a[3] + b[:, 2] * b[:, 3] - inter + 1e-9)
+
+
+def agreement(ref, rows):
+    """Share of ``ref``'s rows with a row of ``rows`` of the same class at
+    IoU > 0.5 (one to one)."""
+    used = np.zeros(len(rows), bool)
+    hit = 0
+    for r in ref:
+        ok = (rows[:, 0] == r[0]) & ~used & (iou_xywh(r[1:5], rows[:, 1:5]) > 0.5)
+        if ok.any():
+            used[np.argmax(ok)] = True
+            hit += 1
+    return hit / max(len(ref), 1)
+
+
+def int8_path(card, weights_path, imgs, fp32_rows):
+    """Phases 4 and 5 in int8.  Returns the kernels' launch counts of the
+    int8 path's run."""
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.ops import entry_kernel as EK
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.postprocess import postprocess_from_raws
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    config = YoloConfig()
+    t0 = time.perf_counter()
+    det = Detector.from_darknet_weights(weights_path, config, device="cuda",
+                                        precision="int8", calib_images=imgs)
+    torch.cuda.synchronize()
+    log(f"main int8: fold + calibration on the {len(imgs)} images + quantization "
+        f"{time.perf_counter() - t0:.2f} s (set-up) | {card}")
+    check(det.model.num_res_blocks == sum(DARKNET53_BLOCKS) - 1,
+          "22 residual blocks after the entry")
+
+    counters = {"fused_entry": EK.fused_entry, "conv1x1_p2d": FC.conv1x1_p2d,
+                "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
+    for fn in counters.values():
+        fn.launches = 0
+    rows = det.detect(imgs)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches == INT8_LAUNCHES,
+          f"int8 launches in one forward {launches}, want {INT8_LAUNCHES}")
+    check_rows(rows, imgs, config.num_classes)
+    log(f"main int8: detect(8 images) ok, launches {launches}, detections per "
+        f"image={[len(r) for r in rows]} | {card}")
+
+    x, _ = det.preprocess(imgs)
+    with torch.inference_mode():
+        heads = det.model(x)
+        plain = det.model(x, plain=True)
+    for i, (h, p) in enumerate(zip(heads, plain)):
+        check(tuple(h.shape) == (BATCH, 13 * 2 ** i, 13 * 2 ** i, 255),
+              f"int8 head{i} shape {tuple(h.shape)}")
+        check(h.dtype == torch.bfloat16 and bool(torch.isfinite(h).all()),
+              f"int8 head{i} finite bf16")
+        check(torch.equal(h, p), f"int8 head{i} kernel and plain paths differ")
+        log(f"main int8: head{i} {tuple(h.shape)} kernel vs plain bit-equal, "
+            f"max|head|={h.float().abs().max().item():.3e} | {card}")
+    plain_rows = det.detect(imgs, plain=True)
+    check(all(same_rows(a, b, 0.0, 0.0) for a, b in zip(rows, plain_rows)),
+          "int8 detections equal on kernel and plain paths")
+    log(f"main int8: detection rows equal on kernel and plain paths | {card}")
+    agree = [agreement(f, r) for f, r in zip(fp32_rows, rows)]
+    log(f"main int8 vs fp32 (information, not a gate): share of fp32 detections "
+        f"matched by an int8 one (same class, IoU > 0.5) per image="
+        f"{[round(a, 3) for a in agree]}, mean {np.mean(agree):.3f} | {card}")
+
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: det.model(x))
+        fwd_busy = busy_ms(lambda: det.model(x))
+        fwd_plain_ms = cuda_ms(lambda: det.model(x, plain=True))
+        pre_ms = cuda_ms(lambda: det.preprocess(imgs))
+        post_ms = cuda_ms(lambda: postprocess_from_raws(
+            heads, config, config.img_dim, config.conf_thr, config.nms_thr))
+    e2e_ms = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
+    e2e_plain_ms = cuda_ms(lambda: det.detect(imgs, plain=True), iters=5, warmup=2)
+    log(f"time int8 bs{BATCH} 416: e2e detect {BATCH * 1000 / e2e_ms:.2f} imgs/sec "
+        f"({e2e_ms:.3f} ms/batch), forward {fwd_ms:.3f} ms; plain path: "
+        f"{BATCH * 1000 / e2e_plain_ms:.2f} imgs/sec ({e2e_plain_ms:.3f} ms/batch), "
+        f"forward {fwd_plain_ms:.3f} ms | {card}")
+    log(f"time int8 bs{BATCH} 416 kernel path split: preprocess {pre_ms:.3f} ms, "
+        f"forward {fwd_ms:.3f} ms (device busy {fmt_ms(fwd_busy)}), postprocess "
+        f"{post_ms:.3f} ms | {card}")
+    del det
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -265,16 +517,24 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.load("fused_res_block")
-    log(f"build: fused_res_block {time.perf_counter() - t0:.2f} s (set-up) | {card}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:     # one nvcc per source
+        list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    log(f"build: {', '.join(SOURCES)} {time.perf_counter() - t0:.2f} s "
+        f"(set-up, in parallel) | {card}")
 
     summary = check_kernel(card)
+    summary_i8 = check_int8_kernels(card)
 
     work = os.path.join(os.path.dirname(os.path.abspath(yolo_v3_tpu_torch.__file__)),
                         "build", "smoke")
     os.makedirs(work, exist_ok=True)
     try:
-        launches = main_path(card, os.path.join(work, "yolov3_seed0.weights"))
+        weights_path = os.path.join(work, "yolov3_seed0.weights")
+        imgs = make_images()
+        launches, fp32_rows = main_path(card, weights_path, imgs)
+        launches_i8 = int8_path(card, weights_path, imgs, fp32_rows)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -283,6 +543,18 @@ def main():
                     replaces="yolo_v3_tpu/ops/pallas_kernels.py:97",
                     launches=launches[dt], **summary[dt])
                for dt in (torch.float32, torch.bfloat16)]
+    int8 = (("conv1x1_p2d", "csrc/conv_p2d.cu", "fused_conv.py:131"),
+            ("conv3x3_p2d", "csrc/conv_p2d.cu", "fused_conv.py:236"),
+            ("res_block_p2d", "ops/fused_conv.py", "fused_conv.py:313"),
+            ("fused_entry", "csrc/fused_entry.cu", "entry_kernel.py:193"))
+    for name, source, replaces in int8:
+        entry = dict(name=f"{name}_int8", route="cuda",
+                     source=f"yolo_v3_tpu_torch/{source}",
+                     replaces=f"yolo_v3_tpu/ops/{replaces}",
+                     launches=launches_i8[name], **summary_i8[f"{name}_int8"])
+        if name == "res_block_p2d":
+            entry["composition_of"] = ["conv1x1_p2d_int8", "conv3x3_p2d_int8"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

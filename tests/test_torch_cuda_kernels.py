@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_v3_tpu_torch.ops import entry_kernel as EK
+from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import (
     fused_res_block,
     fused_res_block_ref,
@@ -74,3 +76,125 @@ def test_kernel_rejects_bad_operands(dev):
         fused_res_block(y, w1, b1, w2[:, :, :4], b2)
     with pytest.raises(ValueError):
         fused_res_block(y.transpose(1, 2), w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels: conv1x1_p2d, conv3x3_p2d (res_block_p2d), fused_entry.
+# Kernel and plain version share the int32 accumulation and an epilogue with
+# the same rounding points, so the outputs are bit-equal, bf16 included.
+# ---------------------------------------------------------------------------
+
+def _i8(rng, shape, lo=-20, hi=20):
+    return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int8))
+
+
+def _scale_bias(rng, n, k):
+    """Multipliers that put leaky(acc*m+b) mostly inside +-127 for K=k."""
+    m = rng.uniform(0.5, 1.5, n) * 40.0 / (np.sqrt(k) * 133.0)
+    return (torch.from_numpy(m.astype(np.float32)),
+            torch.from_numpy(rng.normal(0, 3.0, n).astype(np.float32)))
+
+
+def _conv_inputs(b, h, w, c, n, taps, residual, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    x2d = FC.pack_p2d(_i8(rng, (b, h, w, c)))
+    wt = _i8(rng, (3, 3, c, n) if taps == 9 else (c, n))
+    s, bias = _scale_bias(rng, n, taps * c)
+    res = _i8(rng, (x2d.shape[0], n), -127, 128) if residual else None
+    move = (lambda t: None if t is None else t.to(dev))
+    return [move(t) for t in (x2d, wt, s, bias, res)]
+
+
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+@pytest.mark.parametrize("shape,residual,out_dtype", [
+    ((2, 6, 6, 16, 24), False, torch.int8),        # the Pallas suite's shapes
+    ((2, 8, 10, 16, 24), True, torch.bfloat16),
+    ((1, 5, 7, 4, 8), False, torch.int8),          # C % 16 != 0, ragged R
+    ((1, 6, 6, 40, 36), True, torch.int8),         # C, N off the tile sizes
+    ((2, 13, 13, 1024, 512), False, torch.int8),   # 13^2 head / res conv1
+    ((2, 13, 13, 512, 1024), True, torch.int8),    # 13^2 res conv2 / head 3x3
+    ((2, 13, 13, 1024, 255), False, torch.bfloat16),   # det, N = 255
+    ((2, 52, 52, 128, 256), True, torch.int8),
+    ((8, 26, 26, 512, 256), False, torch.int8),
+])
+def test_int8_conv_kernel_matches_plain(dev, taps, shape, residual, out_dtype):
+    b, h, w, c, n = shape
+    x2d, wt, s, bias, res = _conv_inputs(b, h, w, c, n, taps, residual, dev)
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    fn, ref = ((FC.conv1x1_p2d, FC.conv1x1_p2d_ref) if taps == 1
+               else (FC.conv3x3_p2d, FC.conv3x3_p2d_ref))
+    leaky = out_dtype == torch.int8
+    kw = dict(leaky=leaky, out_dtype=out_dtype, residual=res, res_scale=0.7)
+    before = fn.launches
+    got = fn(x2d, wt, s, bias, hp, wp, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(x2d, wt, s, bias, hp, wp, **kw)
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    # borders are zero
+    full = got.reshape(b, h + 2, w + 2, n).float()
+    assert full[:, 0].abs().sum() == 0 and full[:, :, -1].abs().sum() == 0
+
+
+def test_int8_res_block_kernel_matches_plain(dev):
+    rng = np.random.default_rng(1)
+    b, h, w, c = 2, 26, 26, 512
+    x2d = FC.pack_p2d(_i8(rng, (b, h, w, c))).to(dev)
+    w1, w2 = _i8(rng, (c, c // 2)).to(dev), _i8(rng, (3, 3, c // 2, c)).to(dev)
+    s1, b1 = (t.to(dev) for t in _scale_bias(rng, c // 2, c))
+    s2, b2 = (t.to(dev) for t in _scale_bias(rng, c, 9 * c // 2))
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    counts = (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches, FC.res_block_p2d.launches)
+    got = FC.res_block_p2d(x2d, w1, s1, b1, w2, s2, b2, hp, wp, res_scale=0.8)
+    torch.cuda.synchronize()
+    assert (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches,
+            FC.res_block_p2d.launches) == tuple(n + 1 for n in counts)
+    want = FC.res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, res_scale=0.8)
+    assert torch.equal(got, want)
+
+
+def test_int8_conv_kernel_rejects_bad_operands(dev):
+    x2d, wt, s, bias, _ = _conv_inputs(1, 4, 4, 16, 8, 1, False, dev)
+    with pytest.raises(TypeError):                 # the bf16-input mode is not ported
+        FC.conv1x1_p2d(x2d.bfloat16(), wt.bfloat16(), s, bias, 6, 6)
+    with pytest.raises(ValueError):
+        FC.conv3x3_p2d(x2d, wt, s, bias, 6, 6)     # a 1x1 weight for the 3x3
+    with pytest.raises(ValueError):
+        FC.conv1x1_p2d(x2d, wt, s[:4], bias, 6, 6)
+    with pytest.raises(ValueError):
+        FC.conv1x1_p2d(x2d.t().contiguous().t(), wt, s, bias, 6, 6)
+
+
+def _entry_inputs(b, h, w, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    xb = _i8(rng, (b, 2 * h + 2, 2 * w + 2, 12), -127, 128).to(dev)
+    qs2d = {}
+    for name, (kh, kw, cin, cout) in EK.SHAPES.items():
+        shape = (cin, cout) if kh == 1 else (kh, kw, cin, cout)
+        m, bias = _scale_bias(rng, cout, kh * kw * cin)
+        qs2d[name] = {"w": _i8(rng, shape).to(dev), "m": m.to(dev), "b": bias.to(dev)}
+    return xb, qs2d
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 24, 24), (1, 13, 21), (8, 104, 104)])
+def test_fused_entry_kernel_matches_plain(dev, b, h, w):
+    xb, qs2d = _entry_inputs(b, h, w, dev)
+    before = EK.fused_entry.launches
+    got = EK.fused_entry(xb, qs2d, 0.6)
+    torch.cuda.synchronize()
+    assert EK.fused_entry.launches == before + 1
+    want = EK.fused_entry_ref(xb, qs2d, 0.6)
+    assert got.shape == (b, h, w, 128)
+    assert torch.equal(got, want), (got.int() - want.int()).abs().max()
+
+
+def test_fused_entry_kernel_rejects_bad_operands(dev):
+    xb, qs2d = _entry_inputs(1, 8, 8, dev)
+    with pytest.raises(TypeError):
+        EK.fused_entry(xb.float(), qs2d, 0.6)
+    with pytest.raises(ValueError):
+        EK.fused_entry(xb[..., :8].contiguous(), qs2d, 0.6)
+    bad = dict(qs2d, stem=dict(qs2d["stem"], w=qs2d["stem"]["w"].float()))
+    with pytest.raises(ValueError):
+        EK.fused_entry(xb, bad, 0.6)

@@ -114,7 +114,11 @@ def test_detector_from_checkpoint_and_bf16(trees, images, tmp_path):
 
 
 def test_int8_precision_raises(trees):
+    """int8 is served now (tests/test_torch_quantized.py); an unknown
+    precision, or an int8 tree the port cannot serve, still raises."""
     p, s = trees
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="precision"):
         Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
-                 YoloConfig(**CFG), precision="int8")
+                 YoloConfig(**CFG), precision="int4")
+    with pytest.raises(NotImplementedError, match="s2d"):
+        Detector(None, None, YoloConfig(**CFG), quantized_tree={"scales": {}})

@@ -1,8 +1,9 @@
 """High-level detection API: images in, boxes out.
 
-Port of ``yolo_v3_tpu/detector.py`` for bf16 and fp32 serving.  On the
-device: letterbox (cubic resize as two matmuls), the BN-folded forward with
-every residual block on the fused kernel, per-scale display postprocess with
+Port of ``yolo_v3_tpu/detector.py`` for bf16, fp32 and int8 serving.  On
+the device: letterbox (cubic resize as two matmuls), the forward (BN-folded
+float with every residual block on the fused kernel, or int8 with every conv
+but three on the int8 kernels), per-scale display postprocess with
 class-wise greedy NMS, and the mapping of boxes back to original-image
 pixels.  Only the compact [B, M, 8] result returns to the host.
 
@@ -18,9 +19,9 @@ import numpy as np
 import torch
 
 from yolo_v3_tpu_torch.models import darknet as D
+from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as W
 from yolo_v3_tpu_torch.ops import boxes as B
-from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
 from yolo_v3_tpu_torch.ops.letterbox import letterbox_device
 from yolo_v3_tpu_torch.ops.postprocess import detections_to_lists, postprocess_from_raws
 from yolo_v3_tpu_torch.utils.config import YoloConfig
@@ -29,7 +30,7 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def detect_fn(
-    model: D.YoloNetFolded,
+    model,
     x: torch.Tensor,
     org_dims: torch.Tensor,
     config: YoloConfig,
@@ -37,16 +38,19 @@ def detect_fn(
     nms_thr: float,
     use_nms: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
-    res_block=fused_res_block,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """Device pipeline on a folded model (display mode).
+    """Device pipeline on a :class:`~yolo_v3_tpu_torch.models.darknet.
+    YoloNetFolded` or :class:`~yolo_v3_tpu_torch.models.quantized.
+    YoloNetQuantized` (display mode).
 
     ``x``: [B, H, W, 3] float, letterboxed to the net input;
-    ``org_dims``: [B, 2] (org_w, org_h).  Returns [B, M, 8]: x, y, w, h
-    (original-image pixels), obj, prob, cls, valid.
+    ``org_dims``: [B, 2] (org_w, org_h).  ``plain`` runs the kernels' plain
+    versions.  Returns [B, M, 8]: x, y, w, h (original-image pixels), obj,
+    prob, cls, valid.
     """
     img_dim = x.shape[1]
-    raws = model(x.to(compute_dtype), res_block=res_block)
+    raws = model(x.to(compute_dtype), plain=plain)
     res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
                                 nms_thr=nms_thr, use_nms=use_nms)
     org = org_dims.to(torch.float32)
@@ -56,11 +60,16 @@ def detect_fn(
 
 
 class Detector:
-    """Holds the folded model on one device.
+    """Holds the model on one device.
 
-    ``precision``: "bf16" (default) or "fp32".  ``device``: where the model
-    and the whole pipeline run; on a CUDA device the residual blocks run on
-    the hand-written kernel.
+    ``precision``: "bf16" (default), "fp32" or "int8".  ``device``: where
+    the model and the whole pipeline run; on a CUDA device the residual
+    blocks (float) or the convs (int8) run on the hand-written kernels.
+
+    int8 calibrates its activation scales on ``calib_images`` (HWC uint8)
+    when given, else on the JAX package's synthetic batch (uniform noise from
+    ``np.random.default_rng(0)``, 8 images).  A quantized tree
+    (``quantized_tree``, :meth:`from_quantized`) skips calibration.
     """
 
     def __init__(
@@ -70,18 +79,31 @@ class Detector:
         config: YoloConfig = YoloConfig(),
         precision: str = "bf16",
         device="cpu",
+        calib_images=None,
+        quantized_tree=None,
     ):
-        if precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' is not ported yet: the int8 serving path "
-                "(models/quantized.py and its kernels) is ROADMAP queue A, "
-                "item 6, and queue B items 1, 2, 3 and 5")
-        if precision not in _DTYPES:
-            raise ValueError(f"precision must be 'bf16' or 'fp32', got {precision!r}")
+        if quantized_tree is not None:
+            precision = "int8"
+        if precision not in ("int8", *_DTYPES):
+            raise ValueError(
+                f"precision must be 'bf16', 'fp32' or 'int8', got {precision!r}")
         self.config = config
         self.precision = precision
-        self.compute_dtype = _DTYPES[precision]
         self.device = torch.device(device)
+        if precision == "int8":
+            if quantized_tree is None:
+                if calib_images is not None:
+                    calib, _ = self.preprocess(calib_images)
+                else:
+                    rng = np.random.default_rng(0)
+                    calib = torch.from_numpy(rng.uniform(
+                        0, 1, (8, config.img_dim, config.img_dim, 3)).astype(np.float32))
+                quantized_tree = Q.build_quantized(params, state, calib.to(self.device))
+            self.qtree = quantized_tree
+            self.compute_dtype = torch.float32      # the image is quantized inside
+            self.model = Q.YoloNetQuantized(quantized_tree).to(self.device).eval()
+            return
+        self.compute_dtype = _DTYPES[precision]
         folded = D.fold_batchnorm(D.cast_params(params, torch.float32, self.device),
                                   D.cast_params(state, torch.float32, self.device))
         self.model = D.YoloNetFolded(D.cast_params(folded, self.compute_dtype)).eval()
@@ -107,6 +129,21 @@ class Detector:
                 f"{sorted(tree)[:8]})")
         return cls(tree["params"], tree["state"], config, **kw)
 
+    @classmethod
+    def from_quantized(cls, path: str, config: YoloConfig = YoloConfig(),
+                       **kw) -> "Detector":
+        """Load an int8 serving artifact (either package's
+        ``save_quantized``): no float weights, no calibration."""
+        return cls(None, None, config, quantized_tree=Q.load_quantized(path), **kw)
+
+    def save_quantized(self, path: str) -> None:
+        """Write this detector's int8 tree as a ``quantized-v1`` artifact."""
+        if self.precision != "int8":
+            raise ValueError(
+                f"save_quantized requires precision='int8' (got {self.precision!r})")
+        Q.save_quantized(self.qtree, path, meta={"num_classes": self.config.num_classes,
+                                                  "img_dim": self.config.img_dim})
+
     # -- inference --------------------------------------------------------
 
     def preprocess(self, images: Sequence[np.ndarray], dim: Optional[int] = None):
@@ -129,19 +166,19 @@ class Detector:
         nms_thr: Optional[float] = None,
         use_nms: bool = True,
         dim: Optional[int] = None,
-        res_block=fused_res_block,
+        plain: bool = False,
     ) -> List[np.ndarray]:
         """Detect objects in HWC uint8 RGB images.
 
         Returns, per image, a [n, 7] array of rows
         [cls, x, y, w, h, prob, obj] in original-image pixels.
-        ``res_block`` picks the residual-block implementation (the kernel
-        wrapper by default; ``fused_res_block_ref`` for the plain version).
+        ``plain`` runs the kernels' plain PyTorch versions instead of the
+        kernels.
         """
         conf_thr = self.config.conf_thr if conf_thr is None else conf_thr
         nms_thr = self.config.nms_thr if nms_thr is None else nms_thr
         x, org = self.preprocess(images, dim)
         res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
-                        use_nms=use_nms, compute_dtype=self.compute_dtype, res_block=res_block)
+                        use_nms=use_nms, compute_dtype=self.compute_dtype, plain=plain)
         # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
         return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

@@ -9,7 +9,8 @@ images and returns NHWC raw heads; inside, activations are NCHW tensors in
 
 Stem, downsample, head, upsample and detection convs run on ``F.conv2d``.
 Every residual block runs on :func:`~yolo_v3_tpu_torch.ops.fused_res_block.
-fused_res_block`, the hand-written CUDA kernel on a card.
+fused_res_block`, the hand-written CUDA kernel on a card.  The space-to-depth
+weight folds, from which the int8 tree's entry is built, are at the end.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -225,8 +227,8 @@ class YoloNetFolded(nn.Module):
 
     ``forward(x)`` takes an NHWC image batch in the params' dtype and
     returns the three raw heads, coarse first, each
-    [B, H/s, W/s, 3*(5+C)] NHWC.  ``res_block`` selects the residual-block
-    implementation; the default is the kernel wrapper.
+    [B, H/s, W/s, 3*(5+C)] NHWC.  The residual blocks run on the kernel
+    wrapper, or on its plain version with ``plain=True``.
     """
 
     def __init__(self, params: Params):
@@ -250,7 +252,8 @@ class YoloNetFolded(nn.Module):
     def num_res_blocks(self) -> int:
         return sum(len(s) for s in self.stages)
 
-    def forward(self, x: torch.Tensor, res_block=fused_res_block):
+    def forward(self, x: torch.Tensor, plain: bool = False):
+        res_block = fused_res_block_ref if plain else fused_res_block
         y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         y = self.stem(y)
         routes: List[torch.Tensor] = []
@@ -272,6 +275,186 @@ class YoloNetFolded(nn.Module):
 
 def _upsample_nchw(x: torch.Tensor) -> torch.Tensor:
     return upsample2x_nearest(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Space-to-depth weight folds (the JAX ``darknet.py`` s2d section).  The stem,
+# stage 0 and stage 1's downsample are re-expressed in a 2x2 space-to-depth
+# domain with exactly remapped weights: a permutation of the same dot
+# products.  The int8 serving tree is built from these folds.  Like the JAX
+# package's, the folds are numpy: they run once, on the host.
+# ---------------------------------------------------------------------------
+
+def _np32(w) -> np.ndarray:
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu()
+    return np.asarray(w, np.float32)
+
+
+def _s2d_1x1_weights(w):
+    """[1,1,cin,cout] -> [1,1,4cin,4cout] block-diagonal: a 1x1 conv acts on
+    each of the 4 spatial sub-positions independently."""
+    w = _np32(w).reshape(w.shape[2], w.shape[3])
+    cin, cout = w.shape
+    out = np.zeros((1, 1, 4 * cin, 4 * cout), np.float32)
+    for k in range(4):
+        out[0, 0, k * cin:(k + 1) * cin, k * cout:(k + 1) * cout] = w
+    return out
+
+
+def _s2d_3x3_s1_weights(w):
+    """stride-1 3x3 conv, s2d input and output: [3,3,cin,cout] ->
+    [3,3,4cin,4cout], block-space padding (1,1)."""
+    w = _np32(w)
+    cin, cout = w.shape[2], w.shape[3]
+    out = np.zeros((3, 3, 4 * cin, 4 * cout), np.float32)
+    for dy in range(2):
+        for dx in range(2):
+            for u in range(3):
+                for v in range(3):
+                    t, s = dy + u - 1, dx + v - 1
+                    P, by = t // 2 + 1, t % 2
+                    Q, bx = s // 2 + 1, s % 2
+                    ci = (by * 2 + bx) * cin
+                    co = (dy * 2 + dx) * cout
+                    out[P, Q, ci:ci + cin, co:co + cout] = w[u, v]
+    return out
+
+
+def _s2d_3x3_s2_weights(w):
+    """stride-2 3x3 conv, s2d input and s2d output: [3,3,cin,cout] ->
+    [3,3,4cin,4cout] at block stride 2, block-space padding (1,1)."""
+    w = _np32(w)
+    cin, cout = w.shape[2], w.shape[3]
+    out = np.zeros((3, 3, 4 * cin, 4 * cout), np.float32)
+    for dy in range(2):
+        for dx in range(2):
+            for u in range(3):
+                for v in range(3):
+                    t, s = 2 * dy + u - 1, 2 * dx + v - 1
+                    P, by = t // 2 + 1, t % 2
+                    Q, bx = s // 2 + 1, s % 2
+                    ci = (by * 2 + bx) * cin
+                    co = (dy * 2 + dx) * cout
+                    out[P, Q, ci:ci + cin, co:co + cout] = w[u, v]
+    return out
+
+
+def _s2d_3x3_s2_exit_weights(w):
+    """stride-2 3x3 conv, s2d input, native output: [3,3,cin,cout] ->
+    [2,2,4cin,cout], block-space padding (1,0)."""
+    w = _np32(w)
+    cin, cout = w.shape[2], w.shape[3]
+    out = np.zeros((2, 2, 4 * cin, cout), np.float32)
+    for u in range(3):
+        for v in range(3):
+            t, s = u - 1, v - 1
+            P, by = t // 2 + 1, t % 2
+            Q, bx = s // 2 + 1, s % 2
+            ci = (by * 2 + bx) * cin
+            out[P, Q, ci:ci + cin, :] = w[u, v]
+    return out
+
+
+def _stem4_weights(stem_w, stem_b):
+    """The stem in the 4x4 space-to-depth domain: [3,3,cin,c1] ->
+    [2,2,16cin,16c1] VALID conv over the (1,3)x(1,3)-padded, 4x4-block
+    image; returns (weights, bias tiled 16 times)."""
+    stem_w = _np32(stem_w)
+    stem_b = _np32(stem_b)
+    cin, c1 = stem_w.shape[2], stem_w.shape[3]
+    w4 = np.zeros((2, 2, 16 * cin, 16 * c1), np.float32)
+    for dy in range(4):
+        for dx in range(4):
+            co = (dy * 4 + dx) * c1
+            for u in range(3):
+                for v in range(3):
+                    t, s = dy + u, dx + v
+                    ci = ((t % 4) * 4 + (s % 4)) * cin
+                    w4[t // 4, s // 4, ci:ci + cin, co:co + c1] = stem_w[u, v]
+    return w4, np.tile(stem_b, 16)
+
+
+def _down0_4_weights(w):
+    """down0 (3x3/2) reading the 4x4-block stem output directly:
+    [3,3,cin,cout] -> [2,2,16cin,4cout], stride 1, block-space padding
+    (1,0); output in the 2x2-block layout."""
+    w = _np32(w)
+    cin, cout = w.shape[2], w.shape[3]
+    out = np.zeros((2, 2, 16 * cin, 4 * cout), np.float32)
+    for by in range(2):
+        for bx in range(2):
+            co = (by * 2 + bx) * cout
+            for u in range(3):
+                for v in range(3):
+                    t = 2 * by + u - 1
+                    s = 2 * bx + v - 1
+                    kI, dy = t // 4 + 1, t % 4
+                    kJ, dx = s // 4 + 1, s % 4
+                    ci = (dy * 4 + dx) * cin
+                    out[kI, kJ, ci:ci + cin, co:co + cout] = w[u, v]
+    return out
+
+
+def _s2d_stem_weights(w):
+    """stem 3x3/s1 conv on the (1,3)x(1,3)-padded 2x2-block image:
+    [3,3,cin,c1] -> [3,3,4cin,4c1] VALID conv over blocks."""
+    w = _np32(w)
+    cin, c1 = w.shape[2], w.shape[3]
+    out = np.zeros((3, 3, 4 * cin, 4 * c1), np.float32)
+    for dy in range(2):
+        for dx in range(2):
+            for u in range(3):
+                for v in range(3):
+                    t, s = dy + u - 1, dx + v - 1
+                    P, by = (t + 1) // 2, (t + 1) % 2
+                    Q, bx = (s + 1) // 2, (s + 1) % 2
+                    ci = (by * 2 + bx) * cin
+                    co = (dy * 2 + dx) * c1
+                    out[P, Q, ci:ci + cin, co:co + c1] = w[u, v]
+    return out
+
+
+def fold_space_to_depth(folded: Params) -> Params:
+    """Add 's2d' remapped weights covering the stem, all of stage 0 and
+    stage 1's downsample (the JAX ``fold_space_to_depth``); tensors keep the
+    stem weight's dtype and device."""
+    bk = folded["backbone"]
+    s0, s1 = bk["stage0"], bk["stage1"]
+    like = bk["stem"]["w"]
+
+    def block(w, b):
+        return {"w": torch.from_numpy(w).to(like.device, like.dtype),
+                "b": torch.from_numpy(np.ascontiguousarray(b)).to(like.device, like.dtype)}
+
+    out = dict(folded)
+    out["s2d"] = {
+        "stem": block(_s2d_stem_weights(bk["stem"]["w"]),
+                      np.tile(_np32(bk["stem"]["b"]), 4)),
+        "down0": block(_s2d_3x3_s2_weights(s0["down"]["w"]),
+                       np.tile(_np32(s0["down"]["b"]), 4)),
+        "res0_1": block(_s2d_1x1_weights(s0["res0"]["conv1"]["w"]),
+                        np.tile(_np32(s0["res0"]["conv1"]["b"]), 4)),
+        "res0_2": block(_s2d_3x3_s1_weights(s0["res0"]["conv2"]["w"]),
+                        np.tile(_np32(s0["res0"]["conv2"]["b"]), 4)),
+        "down1": block(_s2d_3x3_s2_exit_weights(s1["down"]["w"]),
+                       _np32(s1["down"]["b"])),
+    }
+    return out
+
+
+def _space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """[B, 2H, 2W, C] -> [B, H, W, 4C] with (by, bx, c) channel order."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def _space_to_depth4(x: torch.Tensor) -> torch.Tensor:
+    """[B, 4H, 4W, C] -> [B, H, W, 16C] with (by, bx, c) channel order."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 4, 4, w // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 4, w // 4, 16 * c)
 
 
 # ---------------------------------------------------------------------------

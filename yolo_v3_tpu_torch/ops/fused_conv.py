@@ -1,0 +1,332 @@
+"""Fused int8 convolutions on the padded-2D activation layout: the port of
+``yolo_v3_tpu/ops/fused_conv.py`` (``conv1x1_p2d``, ``conv3x3_p2d``,
+``res_block_p2d``).
+
+A [B, H, W, C] tensor is stored as ``x2d`` [B*(H+2)*(W+2), C]: each image
+zero-padded by one pixel on every side, (batch, row, col) flattened.  The 9
+taps of a 3x3/stride-1 SAME conv are then constant row offsets::
+
+    out[g] = sum_{dy,dx} x2d[g + (dy-1)*(W+2) + (dx-1)] @ w[dy, dx]
+
+and the epilogue re-zeroes the border rows, so the layout is closed under
+composition: a whole stage of residual blocks, or a head, runs in it.
+Rows outside [0, R) read as 0.
+
+Epilogue, in this order (float32, each step rounded, no fused multiply-add)::
+
+    y = acc * scale + bias;  y = leaky(y);  y = y + residual * res_scale
+    y = 0 on border rows;    int8: clip(round_half_even(y), -127, 127)
+                             bf16: round to nearest even
+
+:func:`conv1x1_p2d` and :func:`conv3x3_p2d` launch the CUDA kernel
+(``csrc/conv_p2d.cu``) for a CUDA tensor and use their plain versions
+(``*_ref``) for a CPU tensor.  The kernels take int8 input; the TPU
+kernels' bf16-input mode is not ported.
+
+:func:`conv_i8_nhwc` is the plain NHWC int8 convolution (explicit im2col +
+an exact int32 product) with the same epilogue: the plain version of the
+entry chain and the int8 path's three stride-2 downsamples.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from yolo_v3_tpu_torch.ops import _build
+
+LEAKY = 0.1
+
+_OUT_DTYPES = (torch.int8, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Layout helpers
+# ---------------------------------------------------------------------------
+
+def pack_p2d(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B*(H+2)*(W+2), C] with one zero-pixel border."""
+    b, h, w, c = x.shape
+    return F.pad(x, (0, 0, 1, 1, 1, 1)).reshape(b * (h + 2) * (w + 2), c)
+
+
+def unpack_p2d(x2d: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
+    """[B*(H+2)*(W+2), C] -> [B, H, W, C] (borders dropped; a view)."""
+    return x2d.reshape(b, h + 2, w + 2, x2d.shape[-1])[:, 1:h + 1, 1:w + 1, :]
+
+
+def p2d_geometry(b: int, h: int, w: int) -> Tuple[int, int, int]:
+    """(R, hp, wp) of the padded-2D layout for a [b, h, w, *] tensor."""
+    return b * (h + 2) * (w + 2), h + 2, w + 2
+
+
+def border_mask(r: int, hp: int, wp: int, device) -> torch.Tensor:
+    """[R] bool: True for the non-border rows of the padded-2D layout."""
+    p = torch.arange(r, device=device) % (hp * wp)
+    row, col = p // wp, p % wp
+    return (row >= 1) & (row <= hp - 2) & (col >= 1) & (col <= wp - 2)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    extra = size - t.shape[dim]
+    if extra <= 0:
+        return t
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, extra]
+    return F.pad(t, pad)
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 [M, K] @ [K, N] through ``torch._int_mm``.
+    On CUDA cuBLASLt takes only some shapes (M > 16 and K, N multiples of 8
+    are documented; it also refused M = 1096 at K = 112): the operands are
+    zero-padded to multiples of 32 and the result cut back."""
+    m, n = a.shape[0], b.shape[1]
+    if a.is_cuda:
+        k32 = -(-a.shape[1] // 32) * 32
+        a = _pad_to(_pad_to(a, 1, k32), 0, -(-m // 32) * 32)
+        b = _pad_to(_pad_to(b, 0, k32), 1, -(-n // 32) * 32)
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def epilogue_ref(acc, scale, bias, *, leaky=True, residual=None, res_scale=1.0,
+                 valid=None, out_dtype=torch.int8):
+    """The kernels' epilogue on an int32 accumulator [..., N]: float32
+    multiply, add, leaky, residual multiply-add, mask, then requantize to
+    int8 (round half to even, clip to +-127) or round to bf16.  ``valid``
+    broadcasts against ``acc``; masked values become 0."""
+    y = acc.float() * scale.float()
+    y = y + bias.float()
+    if leaky:
+        y = torch.where(y > 0, y, LEAKY * y)
+    if residual is not None:
+        y = y + residual.float() * res_scale
+    if valid is not None:
+        y = torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=y.device))
+    if out_dtype == torch.int8:
+        return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def _w2d(w: torch.Tensor, c: int, taps: int) -> torch.Tensor:
+    """A 1x1 ([C, N] or [1, 1, C, N]) or 3x3 ([3, 3, C, N], [9, C, N] or
+    [9C, N]) weight as [taps*C, N]."""
+    if w.numel() % (taps * c) != 0:
+        raise ValueError(f"weight {tuple(w.shape)} does not have {taps} taps of "
+                         f"{c} input channels")
+    w2 = w.reshape(taps * c, -1)
+    if tuple(w.shape[-1:]) != tuple(w2.shape[-1:]):
+        raise ValueError(f"weight {tuple(w.shape)} does not have {taps} taps of "
+                         f"{c} input channels")
+    return w2
+
+
+def _tap_rows(x2d: torch.Tensor, wp: int) -> torch.Tensor:
+    """[R, C] -> [R, 9C]: the 9 tap rows of each output row, zeros outside
+    [0, R) (im2col in the padded-2D layout)."""
+    r = x2d.shape[0]
+    halo = wp + 1
+    xh = F.pad(x2d, (0, 0, halo, halo))
+    return torch.cat([xh[dy * wp + dx:dy * wp + dx + r]
+                      for dy in range(3) for dx in range(3)], dim=1)
+
+
+def conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
+                    out_dtype=torch.int8, residual=None, res_scale=1.0):
+    """Plain version of :func:`conv1x1_p2d`."""
+    acc = int_mm(x2d, _w2d(w, x2d.shape[1], 1))
+    valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
+    return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
+                        res_scale=res_scale, valid=valid, out_dtype=out_dtype)
+
+
+def conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
+                    out_dtype=torch.int8, residual=None, res_scale=1.0):
+    """Plain version of :func:`conv3x3_p2d`."""
+    acc = int_mm(_tap_rows(x2d, wp), _w2d(w, x2d.shape[1], 9))
+    valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
+    return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
+                        res_scale=res_scale, valid=valid, out_dtype=out_dtype)
+
+
+def res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
+                      out_dtype=torch.int8, res_scale=1.0):
+    """Plain version of :func:`res_block_p2d`."""
+    mid = conv1x1_p2d_ref(x2d, w1, s1, b1, hp, wp, out_dtype=x2d.dtype)
+    return conv3x3_p2d_ref(mid, w2, s2, b2, hp, wp, out_dtype=out_dtype,
+                           residual=x2d, res_scale=res_scale)
+
+
+def conv_i8_nhwc(x, w, scale, bias, *, stride=1,
+                 padding: Optional[Sequence[Tuple[int, int]]] = None,
+                 residual=None, res_scale=1.0):
+    """int8 NHWC convolution with an HWIO int8 weight, int32 accumulation and
+    the kernels' leaky int8 epilogue (the JAX ``quantized._conv_i8``).
+    ``padding`` is ((top, bottom), (left, right)); the default is SAME for
+    odd kernels."""
+    kh, kw, c, n = w.shape
+    if padding is None:
+        padding = (((kh - 1) // 2,) * 2, ((kw - 1) // 2,) * 2)
+    (pt, pb), (pl, pr) = padding
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    b, hh, ww, _ = xp.shape
+    ho, wo = (hh - kh) // stride + 1, (ww - kw) // stride + 1
+    cols = torch.cat([
+        xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+           dx:dx + stride * (wo - 1) + 1:stride, :]
+        for dy in range(kh) for dx in range(kw)], dim=-1)
+    acc = int_mm(cols.reshape(b * ho * wo, kh * kw * c), w.reshape(kh * kw * c, n))
+    out = epilogue_ref(acc, scale, bias,
+                       residual=None if residual is None else residual.reshape(-1, n),
+                       res_scale=res_scale)
+    return out.reshape(b, ho, wo, n)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name: str):
+    lib = _build.load("conv_p2d")
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.yolo_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.yolo_cuda_error_string
+
+
+def k_major(w: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``w2`` [K, N] (a view of the caller's weight ``w``) as a contiguous
+    [N, K]: the layout the kernel reads.  The copy is cached on ``w`` until
+    ``w`` moves or is written in place, so a model's weights are transposed
+    once."""
+    version = 0 if w.is_inference() else w._version
+    key = (w.data_ptr(), version)
+    cached = getattr(w, "_k_major", None)
+    if cached is None or cached[0] != key:
+        cached = (key, w2.t().contiguous())
+        w._k_major = cached
+    return cached[1]
+
+
+def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
+            residual, res_scale):
+    """Check the operands of a CUDA launch and run the kernel."""
+    if x2d.dtype != torch.int8:
+        raise TypeError(f"{name}: the CUDA kernel takes int8 input, got "
+                        f"{x2d.dtype} (the bf16-input mode is not ported)")
+    if x2d.dim() != 2:
+        raise ValueError(f"{name}: x2d must be [R, C], got {tuple(x2d.shape)}")
+    r, c = x2d.shape
+    w2 = _w2d(w, c, taps)
+    n = w2.shape[1]
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"{name}: out_dtype must be int8 or bfloat16, got {out_dtype}")
+    if w.dtype != torch.int8:
+        raise TypeError(f"{name}: w must be int8, got {w.dtype}")
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"{name}: scale and bias must be float32")
+    if tuple(scale.shape) != (n,) or tuple(bias.shape) != (n,):
+        raise ValueError(f"{name}: scale and bias must be [{n}], got "
+                         f"{tuple(scale.shape)} and {tuple(bias.shape)}")
+    operands = [x2d, w2, scale, bias]
+    if residual is not None:
+        if residual.dtype != torch.int8:
+            raise TypeError(f"{name}: the kernel's residual must be int8, got "
+                            f"{residual.dtype}")
+        if tuple(residual.shape) != (r, n):
+            raise ValueError(f"{name}: residual must be [{r}, {n}], got "
+                             f"{tuple(residual.shape)}")
+        operands.append(residual)
+    if any(t.device != x2d.device for t in operands):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if x2d.data_ptr() % 16:
+        raise ValueError(f"{name}: x2d must start on a 16-byte boundary")
+    if hp < 3 or wp < 3 or r <= 0 or n <= 0:
+        raise ValueError(f"{name}: bad geometry R={r} hp={hp} wp={wp} N={n}")
+    wt = k_major(w, w2)
+    out = torch.empty((r, n), dtype=out_dtype, device=x2d.device)
+    fn, err_str = _kernel(f"yolo_{name}_i8")
+    with torch.cuda.device(x2d.device):
+        rc = fn(x2d.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                0 if residual is None else residual.data_ptr(), float(res_scale),
+                out.data_ptr(), int(out_dtype == torch.bfloat16), r, c, n, hp, wp,
+                int(leaky), torch.cuda.current_stream(x2d.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed for x2d {tuple(x2d.shape)}, "
+                           f"N={n}: {err_str(rc).decode()}")
+    return out
+
+
+def _on_cuda(name, x2d):
+    if x2d.device.type == "cpu":
+        return False
+    if x2d.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x2d.device}")
+    return True
+
+
+def conv1x1_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
+                out_dtype=torch.int8, residual=None, res_scale=1.0):
+    """Pointwise conv on the padded-2D layout: ``x2d`` [R, C] int8, ``w``
+    [C, N] int8, ``scale``/``bias`` [N] float32; returns [R, N] int8 or bf16
+    with zero borders.  A CUDA ``x2d`` runs the kernel or raises; a CPU one
+    runs :func:`conv1x1_p2d_ref`.  ``conv1x1_p2d.launches`` counts kernel
+    launches."""
+    if not _on_cuda("conv1x1_p2d", x2d):
+        return conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, leaky=leaky,
+                               out_dtype=out_dtype, residual=residual,
+                               res_scale=res_scale)
+    out = _launch("conv1x1_p2d", 1, x2d, w, scale, bias, hp, wp, leaky,
+                  out_dtype, residual, res_scale)
+    conv1x1_p2d.launches += 1
+    return out
+
+
+def conv3x3_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
+                out_dtype=torch.int8, residual=None, res_scale=1.0):
+    """3x3 stride-1 SAME conv on the padded-2D layout: ``w`` [3, 3, C, N]
+    (or [9, C, N], [9C, N]); otherwise as :func:`conv1x1_p2d`.
+    ``conv3x3_p2d.launches`` counts kernel launches."""
+    if not _on_cuda("conv3x3_p2d", x2d):
+        return conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, leaky=leaky,
+                               out_dtype=out_dtype, residual=residual,
+                               res_scale=res_scale)
+    out = _launch("conv3x3_p2d", 9, x2d, w, scale, bias, hp, wp, leaky,
+                  out_dtype, residual, res_scale)
+    conv3x3_p2d.launches += 1
+    return out
+
+
+conv1x1_p2d.launches = 0
+conv3x3_p2d.launches = 0
+
+
+def res_block_p2d(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
+                  out_dtype=torch.int8, res_scale=1.0):
+    """x + leaky(conv3x3(leaky(conv1x1(x)))) with the add fused into the
+    3x3's epilogue; ``res_scale`` rescales the identity into the output's
+    quantization domain.  The composition of the two kernels (their plain
+    versions on a CPU tensor).  ``res_block_p2d.launches`` counts the blocks
+    run on the card, each one launch of either kernel."""
+    mid = conv1x1_p2d(x2d, w1, s1, b1, hp, wp, out_dtype=x2d.dtype)
+    out = conv3x3_p2d(mid, w2, s2, b2, hp, wp, out_dtype=out_dtype,
+                      residual=x2d, res_scale=res_scale)
+    if x2d.device.type == "cuda":
+        res_block_p2d.launches += 1
+    return out
+
+
+res_block_p2d.launches = 0

@@ -7,11 +7,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``,
    one nvcc per source, all started together;
-3. kernel vs plain, with the device time of both (CUDA-graph replay): the fused residual-block
-   kernel at the 5 residual-block shapes of YOLOv3-416 at batch 8 in fp32 and
-   bf16; the int8 kernels (conv1x1_p2d, conv3x3_p2d, their composition
-   res_block_p2d, fused_entry) bit-equal at every shape the int8 forward
-   launches them at batch 8;
+3. kernel vs plain, with the device time of both (CUDA-graph replay), the
+   card's bound for the same work and, where one PyTorch call computes the
+   same function, that call's time: the fused residual-block kernel at the 5
+   residual-block shapes of YOLOv3-416 at batch 8 in fp32 and bf16 (beside
+   cuDNN convs in the working dtype, TF32 off); the int8 kernels
+   (conv1x1_p2d, conv3x3_p2d, their composition res_block_p2d, fused_entry)
+   bit-equal at every shape the int8 forward launches them at batch 8;
 4. main paths: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
    ``torch.Generator`` seed 0, written as darknet ``.weights`` and loaded
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
@@ -35,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 DARKNET53_BLOCKS = (1, 2, 8, 8, 4)
 # (H, C) of the residual blocks of YOLOv3-416, stage by stage
@@ -65,6 +68,12 @@ INT8_CONVS = {
 INT8_RES = {(104, 128): 2, (52, 256): 8, (26, 512): 8, (13, 1024): 4}
 INT8_LAUNCHES = {"fused_entry": 1, "conv1x1_p2d": 36, "conv3x3_p2d": 31,
                  "res_block_p2d": 22}
+# The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
+# kernel is the larger of its operations over the peak of their type and
+# its bytes (each input read once, each output written once) over HBM's rate.
+# fp32 products count as 3 TF32 products (the kernel's 3xTF32).
+PEAK_OPS = {"bf16": 989e12, "f32": 495e12 / 3, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -142,6 +151,41 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
+def bound(ops, nbytes, kind):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def add_bound(acc, n, ops, nbytes, kind):
+    """Add ``n`` launches of one shape's bound to a per-forward summary."""
+    ms, by = bound(ops, nbytes, kind)
+    acc["bound_ms"] = acc.get("bound_ms", 0.0) + n * ms
+    shares = acc.setdefault("_bound_shares", {"operations": 0.0, "bytes": 0.0})
+    shares[by] += n * ms
+    return ms, by
+
+
+def finish_bound(acc):
+    shares = acc.pop("_bound_shares")
+    acc["bound_by"] = max(shares, key=shares.get)
+    return acc
+
+
+def cudnn_block(y, w1, b1, w2, b2):
+    """The residual block as one cuDNN chain in ``y``'s dtype, channels-last
+    (TF32 off): the yardstick for bf16, which the port never calls."""
+    x = y.permute(0, 3, 1, 2)                                 # NHWC memory
+    k1 = w1.t()[:, :, None, None].contiguous(memory_format=torch.channels_last)
+    k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def run():
+        mid = F.leaky_relu(F.conv2d(x, k1, b1), 0.1)
+        return x + F.leaky_relu(F.conv2d(mid, k2, b2, padding=1), 0.1)
+
+    return run
+
+
 def block_inputs(h, c, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     cmid = c // 2
@@ -156,13 +200,15 @@ def block_inputs(h, c, dtype, seed):
 
 def check_kernel(card):
     """Phase 3: kernel vs plain at every residual-block shape; returns
-    per-dtype {max_abs_err, ms, plain_ms}, device ms summed over one
-    forward's 23 blocks."""
-    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
+    per-dtype {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by},
+    device ms summed over one forward's 23 blocks."""
+    from yolo_v3_tpu_torch.ops.fused_res_block import (
+        f32_cluster_size, fused_res_block, fused_res_block_ref)
 
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
-        err = ms = plain_ms = 0.0
+        acc = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+        size = torch.tensor([], dtype=dtype).element_size()
         for (h, c), n in zip(RES_SHAPES_416, DARKNET53_BLOCKS):
             args = block_inputs(h, c, dtype, seed=h)
             got = fused_res_block(*args)
@@ -172,13 +218,25 @@ def check_kernel(card):
             e = (got.float() - want.float()).abs().max().item()
             k_ms = device_ms(lambda: fused_res_block(*args))
             p_ms = device_ms(lambda: fused_res_block_ref(*args))
+            # fp32: the plain version is the cuDNN fp32 chain itself
+            l_ms = p_ms if dtype == torch.float32 else device_ms(cudnn_block(*args))
+            cmid = c // 2
+            macs = BATCH * h * h * (c * cmid + 9 * cmid * c)
+            nbytes = size * (2 * BATCH * h * h * c + 10 * c * cmid + cmid + c)
+            b_ms, by = add_bound(acc, n, 2 * macs, nbytes, NAMES[dtype])
+            split = (f" cluster={f32_cluster_size(BATCH, h, h, c, cmid)}"
+                     if dtype == torch.float32 else "")
             log(f"kernel {NAMES[dtype]} [{BATCH},{h},{h},{c}] max_abs_err={e:.3e} "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} x{n} blocks "
-                f"tol={TOL[dtype]} | {card}")
-            err, ms, plain_ms = max(err, e), ms + n * k_ms, plain_ms + n * p_ms
-        summary[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        log(f"kernel {NAMES[dtype]} per-forward residual blocks: kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} | {card}")
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({by}){split} x{n} blocks tol={TOL[dtype]} | {card}")
+            acc["max_abs_err"] = max(acc["max_abs_err"], e)
+            acc["ms"] += n * k_ms
+            acc["plain_ms"] += n * p_ms
+            acc["library_ms"] += n * l_ms
+        summary[dtype] = finish_bound(acc)
+        log(f"kernel {NAMES[dtype]} per-forward residual blocks: kernel_ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.4f} ({acc['bound_by']}) | {card}")
     return summary
 
 
@@ -203,14 +261,16 @@ def check_int8_kernels(card):
     gen = torch.Generator().manual_seed(1)
     summary = {}
 
-    def record(name, what, got, want, run, run_plain, n):
+    def record(name, what, got, want, run, run_plain, n, ops, nbytes):
         check(got.dtype == want.dtype and torch.equal(got, want),
               f"{name} {what}: kernel and plain differ")
         err = (got.float() - want.float()).abs().max().item()
         k_ms, p_ms = device_ms(run), device_ms(run_plain)
+        acc = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                            library_ms=None))
+        b_ms, by = add_bound(acc, n, ops, nbytes, "int8")
         log(f"kernel {name} {what} max_abs_err={err:.1e} (bit-equal) kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} x{n} | {card}")
-        acc = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0))
+            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({by}) x{n} | {card}")
         acc["max_abs_err"] = max(acc["max_abs_err"], err)
         acc["ms"] += n * k_ms
         acc["plain_ms"] += n * p_ms
@@ -227,11 +287,15 @@ def check_int8_kernels(card):
                   out_dtype=torch.int8 if out == "i8" else torch.bfloat16)
         got = fn(x2d, w, m, b, hp, wp, **kw)
         torch.cuda.synchronize()
+        rows = x2d.shape[0]
+        nbytes = (rows * c + w.numel() + 8 * n + rows * n * got.element_size()
+                  + (rows * n if residual else 0))
         record(f"{fn.__name__}_int8",
                f"[{BATCH},{hw},{hw},{c}]->{n} {out}{' +res' if residual else ''}",
                got, ref(x2d, w, m, b, hp, wp, **kw),
                lambda: fn(x2d, w, m, b, hp, wp, **kw),
-               lambda: ref(x2d, w, m, b, hp, wp, **kw), count)
+               lambda: ref(x2d, w, m, b, hp, wp, **kw), count,
+               2 * BATCH * hw * hw * taps * c * n, nbytes)
 
     for (hw, c), count in INT8_RES.items():
         x2d = FC.pack_p2d(i8(gen, (BATCH, hw, hw, c)))
@@ -244,7 +308,9 @@ def check_int8_kernels(card):
         record("res_block_p2d_int8", f"[{BATCH},{hw},{hw},{c}]", got,
                FC.res_block_p2d_ref(*args, res_scale=0.8),
                lambda: FC.res_block_p2d(*args, res_scale=0.8),
-               lambda: FC.res_block_p2d_ref(*args, res_scale=0.8), count)
+               lambda: FC.res_block_p2d_ref(*args, res_scale=0.8), count,
+               2 * BATCH * hw * hw * 10 * c * (c // 2),
+               2 * x2d.numel() + w1.numel() + w2.numel() + 8 * (c // 2 + c))
 
     xb = i8(gen, (BATCH, 210, 210, 12), -127, 128)
     qs2d = {}
@@ -254,12 +320,19 @@ def check_int8_kernels(card):
                       "m": m, "b": b}
     got = EK.fused_entry(xb, qs2d, 0.6)
     torch.cuda.synchronize()
+    h = got.shape[1]                     # 104: the stem runs at 2h, the rest at h
+    ops = sum(2 * BATCH * (2 * h if name == "stem" else h) ** 2 * kh * kw_ * cin * cout
+              for name, (kh, kw_, cin, cout) in EK.SHAPES.items())
+    nbytes = (xb.numel() + got.numel()
+              + sum(p["w"].numel() + 8 * p["m"].numel() for p in qs2d.values()))
     record("fused_entry_int8", f"[{BATCH},210,210,12]", got,
            EK.fused_entry_ref(xb, qs2d, 0.6), lambda: EK.fused_entry(xb, qs2d, 0.6),
-           lambda: EK.fused_entry_ref(xb, qs2d, 0.6), 1)
+           lambda: EK.fused_entry_ref(xb, qs2d, 0.6), 1, ops, nbytes)
     for name, acc in summary.items():
+        finish_bound(acc)
         log(f"kernel {name} per forward: kernel_ms={acc['ms']:.4f} "
-            f"plain_ms={acc['plain_ms']:.4f} | {card}")
+            f"plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.4f} "
+            f"({acc['bound_by']}) library_ms=none (no single PyTorch call) | {card}")
     return summary
 
 

@@ -13,6 +13,7 @@ import torch
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import (
+    f32_cluster_size,
     fused_res_block,
     fused_res_block_ref,
 )
@@ -57,6 +58,9 @@ def _block_inputs(shape, cmid, dtype, dev, seed=0):
     ((1, 19, 21, 128), 64),
     ((2, 26, 26, 512), 256),      # YOLOv3 stage 3 / 4 widths
     ((1, 13, 13, 1024), 512),
+    ((8, 26, 26, 512), 256),      # batch 8: the fp32 split runs in clusters
+    ((8, 13, 13, 1024), 512),
+    ((8, 19, 19, 1024), 512),     # ragged and clustered
 ])
 def test_kernel_matches_plain(dev, shape, cmid, dtype):
     args = _block_inputs(shape, cmid, dtype, dev)
@@ -66,6 +70,17 @@ def test_kernel_matches_plain(dev, shape, cmid, dtype):
     assert fused_res_block.launches == before + 1
     want = fused_res_block_ref(*args)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_f32_split_runs_in_clusters_on_small_grids(dev):
+    """At batch 8 the 52x52 and 13x13 blocks split each tile over a cluster
+    (conv1 shared through distributed shared memory); 208x208 fills the card
+    unsplit.  The other batch-8 shapes of test_kernel_matches_plain run
+    whichever split the host picks, clusters included."""
+    assert f32_cluster_size(8, 208, 208, 64, 32) == 1
+    assert f32_cluster_size(8, 52, 52, 256, 128) > 1
+    assert f32_cluster_size(8, 13, 13, 1024, 512) > 1
+    assert f32_cluster_size(8, 19, 19, 1024, 512) > 1
 
 
 def test_kernel_rejects_bad_operands(dev):

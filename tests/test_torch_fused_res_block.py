@@ -1,5 +1,7 @@
 """The port's residual block (plain version, and the wrapper on CPU tensors)
-against the JAX Pallas kernel in interpret mode and the JAX XLA chain."""
+against the JAX Pallas kernel in interpret mode and the JAX XLA chain; the
+fp32 kernel's 3xTF32 scheme (host weight split, operand layout, and a numpy
+emulation of its arithmetic) against the plain fp32 block."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,8 @@ from yolo_v3_tpu.ops.pallas_kernels import fused_res_block as jax_fused_res_bloc
 from yolo_v3_tpu_torch.ops.fused_res_block import (
     fused_res_block,
     fused_res_block_ref,
+    split_tf32,
+    tf32_weights,
 )
 
 
@@ -88,3 +92,106 @@ def test_wrapper_rejects_bad_shapes():
         fused_res_block(y, w1, b1, w2[:, :, :4], b2)
     with pytest.raises(ValueError):
         fused_res_block(y, w1, b1[:4], w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 kernel's 3xTF32 scheme
+# ---------------------------------------------------------------------------
+
+def _weights_to_split():
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=4096).astype(np.float32) * np.float32(0.03)
+    edge = np.array([0.0, -0.0, 1.0, -1.0, 3.0e-30, -7.5e20, 1.0 + 2.0 ** -11,
+                     -(1.0 + 3 * 2.0 ** -11), 0.1, 1.0 / 3.0], np.float32)
+    return torch.from_numpy(np.concatenate([w, edge]))
+
+
+def test_split_tf32_parts_are_tf32():
+    """hi and lo keep 10 mantissa bits: the low 13 of fp32's 23 are zero."""
+    hi, lo = split_tf32(_weights_to_split())
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+
+
+def test_split_tf32_recovers_fp32():
+    """|hi + lo - w| <= 2^-22 |w|: the pair carries fp32's precision."""
+    w = _weights_to_split()
+    hi, lo = split_tf32(w)
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert bool((err <= 2.0 ** -22 * w.double().abs()).all()), err.max()
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """cvt.rna: 1 + 2^-11 (a tie) rounds up to 1 + 2^-10, -(1 + 2^-11) down
+    to -(1 + 2^-10); 1 + 2^-12 rounds to 1."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12])
+    hi, lo = split_tf32(x)
+    assert hi.tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+    assert lo.tolist() == [-(2.0 ** -11), 2.0 ** -11, 2.0 ** -12]
+
+
+def test_tf32_weights_layout_and_cache():
+    """K-major, zero-padded (Cmid to 32, C to 32), hi/lo interleaved per
+    group of 8 K as hi(q), lo(q), hi(q+4), lo(q+4); cached on w1 until a
+    weight is written in place."""
+    c, cmid = 40, 12
+    rng = np.random.default_rng(6)
+    w1 = torch.from_numpy(rng.normal(size=(c, cmid)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(3, 3, cmid, c)).astype(np.float32))
+    w1s, w2s = tf32_weights(w1, w2)
+    assert tuple(w1s.shape) == (32, 2 * 64) and tuple(w2s.shape) == (c * 9, 2 * 32)
+
+    def entry(ws, n, k):                      # (hi, lo) of K-major element [n, k]
+        at = (k // 8) * 16 + (k % 4) * 4 + 2 * ((k % 8) // 4)
+        return ws[n, at].item(), ws[n, at + 1].item()
+
+    h, l = split_tf32(w1)
+    for m, k in ((0, 0), (5, 7), (11, 39), (3, 12)):
+        assert entry(w1s, m, k) == (h[k, m].item(), l[k, m].item())
+    assert entry(w1s, 12, 3) == (0.0, 0.0) and entry(w1s, 2, 45) == (0.0, 0.0)
+    h2, l2 = split_tf32(w2)
+    for co, t, m in ((0, 0, 0), (39, 8, 11), (7, 4, 5)):
+        assert entry(w2s, co * 9 + t, m) == (h2[t // 3, t % 3, m, co].item(),
+                                             l2[t // 3, t % 3, m, co].item())
+    assert entry(w2s, 5, 20) == (0.0, 0.0)
+    assert tf32_weights(w1, w2)[0] is w1s     # cached
+    w2.mul_(2.0)
+    assert tf32_weights(w1, w2)[1] is not w2s  # rebuilt after an in-place write
+
+
+def _mm_tf32(a, b, passes=3):
+    """a @ b as the kernel takes it: both operands split by split_tf32, the
+    three products lo*hi + hi*lo + hi*hi, each summed in fp32 (passes=1:
+    hi*hi alone, a plain TF32 product)."""
+    (ah, al), (bh, bl) = [[t.numpy() for t in split_tf32(torch.from_numpy(x))]
+                          for x in (a, b)]
+    return al @ bh + ah @ bl + ah @ bh if passes == 3 else ah @ bh
+
+
+def test_3xtf32_emulation_holds_fp32_tolerance():
+    """The scheme at a YOLO width, [1, 13, 13, 512] with Cmid 256 (conv2's
+    K = 9 * 256 = 2304), against the plain fp32 block at the kernel's fp32
+    tolerance, rtol = atol = 1e-4.  One TF32 product would not hold it."""
+    b, h, w, c, cmid = 1, 13, 13, 512, 256
+    rng = np.random.default_rng(7)
+    y = rng.normal(size=(b, h, w, c)).astype(np.float32) * np.float32(0.5)
+    w1 = (rng.normal(size=(c, cmid)) / np.sqrt(c)).astype(np.float32)
+    b1 = (rng.normal(size=cmid) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(3, 3, cmid, c)) / np.sqrt(9 * cmid)).astype(np.float32)
+    b2 = (rng.normal(size=c) * 0.1).astype(np.float32)
+
+    def leaky(v):
+        return np.where(v > 0, v, np.float32(0.1) * v)
+
+    def block(passes):
+        mid = leaky(_mm_tf32(y.reshape(-1, c), w1, passes) + b1).reshape(b, h, w, cmid)
+        halo = np.pad(mid, ((0, 0), (1, 1), (1, 1), (0, 0)))   # out-of-image mid is 0
+        cols = np.concatenate([halo[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                               for dx in range(3)], axis=-1).reshape(-1, 9 * cmid)
+        r = leaky(_mm_tf32(cols, w2.reshape(9 * cmid, c), passes) + b2)
+        return y + r.reshape(y.shape)
+
+    want = fused_res_block_ref(*(torch.from_numpy(a) for a in (y, w1, b1, w2, b2)))
+    np.testing.assert_allclose(block(3), want.numpy(), rtol=1e-4, atol=1e-4)
+    one_pass = np.abs(block(1) - want.numpy())
+    assert (one_pass > 1e-4 + 1e-4 * np.abs(want.numpy())).any()

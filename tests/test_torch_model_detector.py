@@ -84,7 +84,7 @@ def test_detect_matches_jax_detector(trees, images):
     jdet = JDetector(jax.tree.map(jnp.asarray, p), jax.tree.map(jnp.asarray, s),
                      JConfig(**CFG), precision="fp32")
     tdet = Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
-                    YoloConfig(**CFG), precision="fp32")
+                    YoloConfig(**CFG), precision="fp32", device="cpu")
     want = jdet.detect(images, conf_thr=0.7)
     got = tdet.detect(images, conf_thr=0.7)
     for g, w in zip(got, want):
@@ -99,12 +99,14 @@ def test_detector_from_checkpoint_and_bf16(trees, images, tmp_path):
     path = str(tmp_path / "ckpt.npz")
     TW.save_pytree({"params": TW.params_from_numpy(p),
                     "state": TW.params_from_numpy(s)}, path)
-    det = Detector.from_checkpoint(path, YoloConfig(**CFG), precision="fp32")
+    det = Detector.from_checkpoint(path, YoloConfig(**CFG), precision="fp32",
+                                   device="cpu")
     ref = Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
-                   YoloConfig(**CFG), precision="fp32")
+                   YoloConfig(**CFG), precision="fp32", device="cpu")
     for a, b in zip(det.detect(images, conf_thr=0.7), ref.detect(images, conf_thr=0.7)):
         np.testing.assert_array_equal(a, b)
-    bf = Detector.from_checkpoint(path, YoloConfig(**CFG), precision="bf16")
+    bf = Detector.from_checkpoint(path, YoloConfig(**CFG), precision="bf16",
+                                  device="cpu")
     assert bf.model.stem.weight.dtype == torch.bfloat16
     for rows, im in zip(bf.detect(images, conf_thr=0.7), images):
         assert rows.ndim == 2 and rows.shape[1] == 7 and np.isfinite(rows).all()
@@ -119,6 +121,26 @@ def test_int8_precision_raises(trees):
     p, s = trees
     with pytest.raises(ValueError, match="precision"):
         Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
-                 YoloConfig(**CFG), precision="int4")
+                 YoloConfig(**CFG), precision="int4", device="cpu")
     with pytest.raises(NotImplementedError, match="s2d"):
-        Detector(None, None, YoloConfig(**CFG), quantized_tree={"scales": {}})
+        Detector(None, None, YoloConfig(**CFG), quantized_tree={"scales": {}},
+                 device="cpu")
+
+
+def test_detector_defaults_to_the_card(trees):
+    """A Detector built without ``device`` serves on the card where there is
+    one; without one it fails with PyTorch's own error and never falls back
+    to the CPU.  Decided here, not at import."""
+    p, s = trees
+
+    def build():
+        return Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
+                        YoloConfig(**CFG), precision="fp32")
+
+    if torch.cuda.is_available():
+        det = build()
+        assert det.device.type == "cuda"
+        assert det.model.stem.weight.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()

@@ -265,7 +265,7 @@ def test_int8_detector_from_quantized_matches_jax(setup, tmp_path):
     JQ.save_quantized(setup["q"], path)
     cfg = dict(num_classes=NUM_CLASSES, img_dim=DIM, max_detections=32)
     want = JDetector.from_quantized(path, JConfig(**cfg)).detect(_images(), conf_thr=0.3)
-    det = Detector.from_quantized(path, YoloConfig(**cfg))
+    det = Detector.from_quantized(path, YoloConfig(**cfg), device="cpu")
     assert det.precision == "int8"
     got = det.detect(_images(), conf_thr=0.3)
     for g, w in zip(got, want):
@@ -288,16 +288,16 @@ def test_int8_detector_calibrates_like_jax_and_round_trips(setup, tmp_path):
     jdet = JDetector(setup["params"], setup["state"], JConfig(**cfg), precision="int8")
     det = Detector(TW.params_from_numpy(jax.device_get(setup["params"])),
                    TW.params_from_numpy(jax.device_get(setup["state"])),
-                   YoloConfig(**cfg), precision="int8")
+                   YoloConfig(**cfg), precision="int8", device="cpu")
     for k, v in jdet.params["scales"].items():
         assert det.qtree["scales"][k] == pytest.approx(v, rel=1e-4), k
     path = str(tmp_path / "port_q.npz")
     det.save_quantized(path)
-    again = Detector.from_quantized(path, YoloConfig(**cfg))
+    again = Detector.from_quantized(path, YoloConfig(**cfg), device="cpu")
     for a, b in zip(det.detect(_images(), conf_thr=0.3), again.detect(_images(), conf_thr=0.3)):
         np.testing.assert_array_equal(a, b)
     fp32 = Detector(TW.params_from_numpy(jax.device_get(setup["params"])),
                     TW.params_from_numpy(jax.device_get(setup["state"])),
-                    YoloConfig(**cfg), precision="fp32")
+                    YoloConfig(**cfg), precision="fp32", device="cpu")
     with pytest.raises(ValueError, match="int8"):
         fp32.save_quantized(str(tmp_path / "x.npz"))

@@ -63,8 +63,10 @@ class Detector:
     """Holds the model on one device.
 
     ``precision``: "bf16" (default), "fp32" or "int8".  ``device``: where
-    the model and the whole pipeline run; on a CUDA device the residual
-    blocks (float) or the convs (int8) run on the hand-written kernels.
+    the model and the whole pipeline run, the card by default ("cuda"), where
+    the residual blocks (float) or the convs (int8) run on the hand-written
+    kernels.  Without a card the default fails with PyTorch's own error;
+    ``device="cpu"`` runs the kernels' plain versions instead.
 
     int8 calibrates its activation scales on ``calib_images`` (HWC uint8)
     when given, else on the JAX package's synthetic batch (uniform noise from
@@ -78,7 +80,7 @@ class Detector:
         state,
         config: YoloConfig = YoloConfig(),
         precision: str = "bf16",
-        device="cpu",
+        device="cuda",
         calib_images=None,
         quantized_tree=None,
     ):

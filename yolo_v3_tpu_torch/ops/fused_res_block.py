@@ -13,6 +13,12 @@ output (out-of-image ``mid`` is 0, not ``leaky(b1)``).
 :func:`fused_res_block` launches the CUDA kernel (``csrc/fused_res_block.cu``)
 for a CUDA tensor and uses the plain version :func:`fused_res_block_ref` for a
 CPU tensor, because there is no kernel to run there.
+
+The fp32 kernel takes each product as three TF32 products (3xTF32: lo*hi +
+hi*lo + hi*hi, fp32 accumulation).  Its weights come split by
+:func:`split_tf32`, zero-padded, K-major and interleaved
+(:func:`tf32_weights`, made once and cached on the weight tensor); it splits
+the activations itself, the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from yolo_v3_tpu_torch.ops import _build
 LEAKY_SLOPE = 0.1
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the fp32 kernel's padding of its weight operands (FK1 and FMGRAN in the source)
+_F32_K1 = 32
+_F32_MGRAN = 32
 
 
 def _split_w1(w1: torch.Tensor, c: int) -> torch.Tensor:
@@ -76,15 +85,80 @@ def fused_res_block_ref(y, w1, b1, w2, b2):
     return y + r.permute(0, 2, 3, 1)
 
 
+def split_tf32(x: torch.Tensor):
+    """fp32 ``x`` -> (hi, lo), both TF32 values (the low 13 of the 23 mantissa
+    bits zero), with ``hi + lo`` = ``x`` within 2^-22 |x|.  Each part is
+    rounded to nearest, ties away from zero: PTX ``cvt.rna.tf32.f32``, which
+    the kernel applies to the activations."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def _version(t: torch.Tensor) -> int:
+    return 0 if t.is_inference() else t._version
+
+
+def _interleave(wk: torch.Tensor) -> torch.Tensor:
+    """K-major [N, K] (K a multiple of 8) -> [N, 2K]: per group of 8 K and
+    per column q < 4, hi(q), lo(q), hi(q + 4), lo(q + 4), the four values
+    one lane's 16-byte load gives the mma's B fragment in 3xTF32."""
+    n, k = wk.shape
+    parts = torch.stack(split_tf32(wk), dim=-1)            # [N, K, 2]
+    return parts.reshape(n, k // 8, 2, 4, 2).transpose(2, 3).reshape(n, 2 * k)
+
+
+def tf32_weights(w1: torch.Tensor, w2: torch.Tensor):
+    """The fp32 kernel's weight operands: ``w1`` [C, Cmid] and ``w2`` [3, 3,
+    Cmid, C] laid out K-major, zero-padded, split by :func:`split_tf32` and
+    interleaved (:func:`_interleave`): w1s [Mpad, 2 * Cp] and w2s [C, 9,
+    2 * Mpad], Mpad = Cmid rounded up to 32, Cp = C rounded up to 32.  Made
+    once and cached on ``w1`` until either weight moves or is written in
+    place."""
+    key = (w1.data_ptr(), _version(w1), w2.data_ptr(), _version(w2))
+    cached = getattr(w1, "_tf32_weights", None)
+    if cached is None or cached[0] != key:
+        c, cmid = w1.shape[-2:]
+        mpad = -(-cmid // _F32_MGRAN) * _F32_MGRAN
+        cp = -(-c // _F32_K1) * _F32_K1
+        w1t = w1.new_zeros(mpad, cp, dtype=torch.float32)
+        w1t[:cmid, :c] = w1.reshape(c, cmid).t()
+        w2t = w2.new_zeros(c, 9, mpad, dtype=torch.float32)
+        w2t[:, :, :cmid] = w2.reshape(9, cmid, c).permute(2, 0, 1)
+        cached = (key, _interleave(w1t), _interleave(w2t.reshape(c * 9, mpad)))
+        w1._tf32_weights = cached
+    return cached[1:]
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel(suffix: str):
+def _kernel(name: str):
+    """(the C function ``yolo_fused_res_block_<name>``, the error-string
+    function); "f32" and "bf16" launch, "f32_cluster" plans."""
     lib = _build.load("fused_res_block")
-    fn = getattr(lib, f"yolo_fused_res_block_{suffix}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(lib, f"yolo_fused_res_block_{name}")
+    if name == "f32_cluster":
+        fn.argtypes = [ctypes.c_int] * 5
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.yolo_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.yolo_cuda_error_string
+
+
+def f32_cluster_size(b: int, h: int, w: int, c: int, cmid: int) -> int:
+    """The thread-block cluster the fp32 kernel launches for [b, h, w, c]
+    with ``cmid`` mid channels on the current CUDA device: the number of
+    blocks that split one tile's channels (1: none)."""
+    fn, err_str = _kernel("f32_cluster")
+    cs = fn(b, h, w, c, cmid)
+    if cs < 0:
+        raise RuntimeError(f"fused_res_block: no fp32 launch for {(b, h, w, c, cmid)}: "
+                           f"{err_str(-cs).decode()}")
+    return cs
 
 
 def fused_res_block(y, w1, b1, w2, b2):
@@ -99,7 +173,7 @@ def fused_res_block(y, w1, b1, w2, b2):
         return fused_res_block_ref(y, w1, b1, w2, b2)
     if y.device.type != "cuda":
         raise ValueError(f"fused_res_block: unsupported device {y.device}")
-    w1 = _check_shapes(y, w1, b1, w2, b2)
+    w1_arg, w1 = w1, _check_shapes(y, w1, b1, w2, b2)
     operands = (y, w1, b1, w2, b2)
     if any(t.device != y.device for t in operands):
         raise ValueError("fused_res_block: all operands must be on one device")
@@ -110,11 +184,14 @@ def fused_res_block(y, w1, b1, w2, b2):
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("fused_res_block: operands must be contiguous")
     b, h, w, c = y.shape
+    cmid = w1.shape[1]
     out = torch.empty_like(y)
     fn, err_str = _kernel(_KERNEL_DTYPES[y.dtype])
+    if y.dtype == torch.float32:
+        w1, w2 = tf32_weights(w1_arg, w2)
+    ptrs = (y, w1, b1, w2, b2, out)
     with torch.cuda.device(y.device):
-        rc = fn(y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), out.data_ptr(), b, h, w, c, w1.shape[1],
+        rc = fn(*[t.data_ptr() for t in ptrs], b, h, w, c, cmid,
                 torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -203,7 +203,7 @@ def check_kernel(card):
     per-dtype {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by},
     device ms summed over one forward's 23 blocks."""
     from yolo_v3_tpu_torch.ops.fused_res_block import (
-        f32_cluster_size, fused_res_block, fused_res_block_ref)
+        cluster_size, fused_res_block, fused_res_block_ref)
 
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -224,8 +224,7 @@ def check_kernel(card):
             macs = BATCH * h * h * (c * cmid + 9 * cmid * c)
             nbytes = size * (2 * BATCH * h * h * c + 10 * c * cmid + cmid + c)
             b_ms, by = add_bound(acc, n, 2 * macs, nbytes, NAMES[dtype])
-            split = (f" cluster={f32_cluster_size(BATCH, h, h, c, cmid)}"
-                     if dtype == torch.float32 else "")
+            split = f" cluster={cluster_size(BATCH, h, h, c, cmid, dtype)}"
             log(f"kernel {NAMES[dtype]} [{BATCH},{h},{h},{c}] max_abs_err={e:.3e} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({by}){split} x{n} blocks tol={TOL[dtype]} | {card}")

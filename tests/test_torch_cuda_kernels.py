@@ -13,7 +13,7 @@ import torch
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import (
-    f32_cluster_size,
+    cluster_size,
     fused_res_block,
     fused_res_block_ref,
 )
@@ -61,6 +61,10 @@ def _block_inputs(shape, cmid, dtype, dev, seed=0):
     ((8, 26, 26, 512), 256),      # batch 8: the fp32 split runs in clusters
     ((8, 13, 13, 1024), 512),
     ((8, 19, 19, 1024), 512),     # ragged and clustered
+    ((8, 208, 208, 64), 32),      # the other residual-block shapes of
+    ((8, 104, 104, 128), 64),     # YOLOv3-416 at the serving batch
+    ((8, 52, 52, 256), 128),
+    ((8, 76, 76, 256), 128),      # YOLOv3-608
 ])
 def test_kernel_matches_plain(dev, shape, cmid, dtype):
     args = _block_inputs(shape, cmid, dtype, dev)
@@ -77,10 +81,20 @@ def test_f32_split_runs_in_clusters_on_small_grids(dev):
     (conv1 shared through distributed shared memory); 208x208 fills the card
     unsplit.  The other batch-8 shapes of test_kernel_matches_plain run
     whichever split the host picks, clusters included."""
-    assert f32_cluster_size(8, 208, 208, 64, 32) == 1
-    assert f32_cluster_size(8, 52, 52, 256, 128) > 1
-    assert f32_cluster_size(8, 13, 13, 1024, 512) > 1
-    assert f32_cluster_size(8, 19, 19, 1024, 512) > 1
+    assert cluster_size(8, 208, 208, 64, 32) == 1
+    assert cluster_size(8, 52, 52, 256, 128) > 1
+    assert cluster_size(8, 13, 13, 1024, 512) > 1
+    assert cluster_size(8, 19, 19, 1024, 512) > 1
+
+
+def test_bf16_split_runs_in_clusters_on_small_grids(dev):
+    """The bf16 kernel shares the planner: at batch 8, 208x208 fills the card
+    unsplit, and the 13x13 and 19x19 tiles (ragged) split over a cluster
+    with conv1 sliced across it."""
+    bf16 = torch.bfloat16
+    assert cluster_size(8, 208, 208, 64, 32, bf16) == 1
+    assert cluster_size(8, 13, 13, 1024, 512, bf16) > 1
+    assert cluster_size(8, 19, 19, 1024, 512, bf16) > 1
 
 
 def test_kernel_rejects_bad_operands(dev):
@@ -91,6 +105,16 @@ def test_kernel_rejects_bad_operands(dev):
         fused_res_block(y, w1, b1, w2[:, :, :4], b2)
     with pytest.raises(ValueError):
         fused_res_block(y.transpose(1, 2), w1, b1, w2, b2)
+
+
+
+def test_bf16_kernel_rejects_unaligned_channels(dev):
+    """The bf16 kernel stages y in 16-byte rows: C % 8 != 0 raises."""
+    args = _block_inputs((1, 8, 8, 12), 6, torch.bfloat16, dev)
+    before = fused_res_block.launches
+    with pytest.raises(ValueError):
+        fused_res_block(*args)
+    assert fused_res_block.launches == before
 
 
 # ---------------------------------------------------------------------------

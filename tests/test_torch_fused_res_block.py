@@ -1,7 +1,10 @@
 """The port's residual block (plain version, and the wrapper on CPU tensors)
 against the JAX Pallas kernel in interpret mode and the JAX XLA chain; the
 fp32 kernel's 3xTF32 scheme (host weight split, operand layout, and a numpy
-emulation of its arithmetic) against the plain fp32 block."""
+emulation of its arithmetic) against the plain fp32 block; the bf16 kernel's
+weight layout and an emulation of its decomposition (tiles, halo window,
+conv1 sliced over a cluster, tap GEMMs) against the plain block and the
+Pallas kernel."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ import torch
 from yolo_v3_tpu.models import darknet as JD
 from yolo_v3_tpu.ops.pallas_kernels import fused_res_block as jax_fused_res_block
 from yolo_v3_tpu_torch.ops.fused_res_block import (
+    bf16_weights,
     fused_res_block,
     fused_res_block_ref,
     split_tf32,
@@ -195,3 +199,118 @@ def test_3xtf32_emulation_holds_fp32_tolerance():
     np.testing.assert_allclose(block(3), want.numpy(), rtol=1e-4, atol=1e-4)
     one_pass = np.abs(block(1) - want.numpy())
     assert (one_pass > 1e-4 + 1e-4 * np.abs(want.numpy())).any()
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's decomposition
+# ---------------------------------------------------------------------------
+
+def test_bf16_weights_layout_and_cache():
+    """K-major and zero-padded: w1k [Mpad, Cp] (Mpad = Cmid to 16, Cp = C to
+    64), w2k [C, K2p] with column t * Mpad + m (K2p = 9 * Mpad to 64); HWIO
+    comes back from both; cached on w1 until a weight is written in place."""
+    c, cmid = 40, 12
+    rng = np.random.default_rng(8)
+    w1 = torch.from_numpy(rng.normal(size=(c, cmid)).astype(np.float32)).bfloat16()
+    w2 = torch.from_numpy(rng.normal(size=(3, 3, cmid, c)).astype(np.float32)).bfloat16()
+    w1k, w2k = bf16_weights(w1, w2)
+    assert w1k.dtype == w2k.dtype == torch.bfloat16
+    assert tuple(w1k.shape) == (16, 64) and tuple(w2k.shape) == (c, 192)
+    assert torch.equal(w1k[:cmid, :c].t(), w1)
+    taps = w2k[:, :9 * 16].reshape(c, 9, 16)
+    assert torch.equal(taps[:, :, :cmid].permute(1, 2, 0).reshape(3, 3, cmid, c), w2)
+    assert not w1k[cmid:].any() and not w1k[:, c:].any()
+    assert not taps[:, :, cmid:].any() and not w2k[:, 9 * 16:].any()
+    assert bf16_weights(w1, w2)[0] is w1k     # cached
+    w1.mul_(2.0)
+    assert bf16_weights(w1, w2)[0] is not w1k  # rebuilt after an in-place write
+
+
+TH = TW = 8          # the kernel's output tile
+HALO = TW + 2        # halo window width (10 x 10 pixels)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _leaky(v):
+    return torch.where(v > 0, v, 0.1 * v)
+
+
+def _emulate_bf16_kernel(y, w1, b1, w2, b2, cs):
+    """The bf16 kernel's decomposition on the CPU, in fp32 with its rounding
+    points.  Per 8x8 output tile: the 10x10 halo window of y; conv1 sliced
+    over a cluster of ``cs`` blocks (rank j computes mid channels
+    [j*MS, (j+1)*MS) from the K-major w1k), mid 0 outside the image and in
+    padded channels, rounded to bf16; conv2 as 9 tap GEMMs whose A rows are
+    the halo rows shifted by the tap, against w2k's tap-major K; conv2's
+    result rounded to bf16, then added to y and rounded again."""
+    b, h, w, c = y.shape
+    cmid = w1.shape[-1]
+    w1k, w2k = (t.float() for t in bf16_weights(w1, w2))
+    mpad = w1k.shape[0]
+    ms = -(-mpad // 16 // cs) * 16
+    yf, b1f, b2f = y.float(), b1.float(), b2.float()
+    b1p = torch.zeros(mpad)
+    b1p[:cmid] = b1f
+    out = torch.empty_like(yf)
+    p = torch.arange(HALO * HALO)
+    pix = torch.arange(TH * TW)
+    hrow = (pix // TW) * HALO + pix % TW
+    for bi in range(b):
+        for ty0 in range(0, h, TH):
+            for tx0 in range(0, w, TW):
+                gy, gx = ty0 - 1 + p // HALO, tx0 - 1 + p % HALO
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+                yh = torch.zeros(HALO * HALO, w1k.shape[1])
+                yh[inside, :c] = yf[bi, gy[inside], gx[inside]]
+                mid = torch.zeros(HALO * HALO, mpad)
+                for rank in range(cs):
+                    lo = rank * ms
+                    hi = min(lo + ms, mpad)
+                    if hi <= lo:
+                        continue
+                    v = _leaky(yh @ w1k[lo:hi].t() + b1p[lo:hi])
+                    keep = inside[:, None] & (torch.arange(lo, hi) < cmid)[None]
+                    mid[:, lo:hi] = _bf16(torch.where(keep, v, torch.zeros(())))
+                cols = torch.cat([mid[hrow + (t // 3) * HALO + t % 3] for t in range(9)], 1)
+                r = _bf16(_leaky(cols @ w2k[:, :9 * mpad].t() + b2f))
+                oy, ox = ty0 + pix // TW, tx0 + pix % TW
+                ok = (oy < h) & (ox < w)
+                out[bi, oy[ok], ox[ok]] = _bf16(yf[bi, oy[ok], ox[ok]] + r[ok])
+    return out
+
+
+_PALLAS_BF16 = {}
+
+
+def _pallas_bf16(shape, cmid, arrs):
+    """The JAX Pallas kernel on bf16 inputs, interpret mode, one tile of the
+    whole height (computed once per shape)."""
+    if (shape, cmid) not in _PALLAS_BF16:
+        got = jax_fused_res_block(*[jnp.asarray(a, jnp.bfloat16) for a in arrs],
+                                  tile_h=shape[1], interpret=True)
+        _PALLAS_BF16[(shape, cmid)] = np.asarray(got.astype(jnp.float32))
+    return _PALLAS_BF16[(shape, cmid)]
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+@pytest.mark.parametrize("shape,cmid", [((2, 13, 13, 128), 64),   # ragged tiles
+                                        ((1, 19, 21, 80), 40)])   # Cmid padded to 48
+def test_bf16_kernel_emulation_holds_bf16_tolerance(shape, cmid, cs):
+    """The decomposition against the plain block and the Pallas kernel at
+    the bf16 tolerance (2 bf16 ulps: a rounding-point flip of mid or of
+    conv2's result between two fp32 summation orders)."""
+    b, h, w, c = shape
+    rng = np.random.default_rng(9)
+    arrs = [rng.normal(size=shape) * 0.5, rng.normal(size=(c, cmid)) / np.sqrt(c),
+            rng.normal(size=cmid) * 0.1, rng.normal(size=(3, 3, cmid, c)) / np.sqrt(9 * cmid),
+            rng.normal(size=c) * 0.1]
+    arrs = [np.asarray(a, np.float32) for a in arrs]
+    args = _torch(arrs, torch.bfloat16)
+    got = _emulate_bf16_kernel(*args, cs=cs)
+    want = fused_res_block_ref(*args).float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1.6e-2, atol=1.6e-2)
+    np.testing.assert_allclose(got.numpy(), _pallas_bf16(shape, cmid, arrs),
+                               rtol=1.6e-2, atol=1.6e-2)

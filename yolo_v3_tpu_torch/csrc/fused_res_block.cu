@@ -87,16 +87,8 @@ constexpr float LEAKY = 0.1f;
 __device__ __forceinline__ float leaky(float x) { return x > 0.f ? x : LEAKY * x; }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate)
+// Shared: tensor-core fragments, cp.async, the pipeline ring
 // ---------------------------------------------------------------------------
-
-constexpr int SKEW = 8;   // bf16 row padding (16 bytes): ldmatrix rows hit distinct banks
-constexpr int M1 = 112;   // halo pixels padded to 7 m16 tiles
-constexpr int K1 = 32;    // input channels per conv1 step
-constexpr int N1 = 128;   // mid channels per conv1 pass: 8 warps x 16
-constexpr int K2 = 16;    // mid channels per conv2 step
-constexpr int N2 = 128;   // output channels per conv2 pass: 4 warp columns x 32
-constexpr int MGRAN = 32; // mid channels are padded (in shared memory only) to this
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -104,12 +96,6 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
@@ -123,18 +109,9 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage the first n (any int) of 8 bf16 from global `src` into shared `dst`,
-// zero-filling the rest.  A 16-byte-aligned run goes through one cp.async
-// (landed after the next cp_async_wait); otherwise element by element.
-__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n, bool vec) {
-  if (vec) {
-    const int bytes = n >= 8 ? 16 : (n > 0 ? 2 * n : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = i < n ? src[i] : __float2bfloat16_rn(0.f);
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -147,170 +124,238 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
 }
 
-// Shared staging: two buffers (double-buffered cp.async), each holding one
-// conv1 step (y rows + w1 rows) or one conv2 step (w2 rows of 9 taps).
-constexpr int STAGE1 = M1 * (K1 + SKEW) + K1 * (N1 + SKEW);
-constexpr int STAGE2 = 9 * K2 * (N2 + SKEW);
-constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;
+// Run `steps` steps through an NS-slot ring of SLOT elements: load(s, slot)
+// issues step s's cp.async copies, compute(s, slot) consumes them.  Loads run
+// LEAD steps ahead, into the slot of step s + LEAD - NS; one barrier per
+// step.  LEAD = NS - 1 where compute is done with its slot when it returns.
+// Returns with the ring idle.
+template <int NS, int LEAD, int SLOT, typename T, typename Load, typename Compute>
+__device__ __forceinline__ void ring_pipeline(int steps, T* ring, Load load, Compute compute) {
+  static_assert(LEAD >= 1 && LEAD < NS, "ring lead");
+#pragma unroll
+  for (int s = 0; s < LEAD; ++s) {
+    if (s < steps) load(s, ring + s * SLOT);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<LEAD - 1>();  // step s has landed
+    __syncthreads();            // ... for every thread; slot of step s + LEAD - NS is free
+    const int next = s + LEAD;
+    if (next < steps) load(next, ring + (next % NS) * SLOT);
+    cp_async_commit();
+    compute(s, ring + (s % NS) * SLOT);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
 
-// y, out: [B, H, W, C]; w1: [C, Cmid]; w2: [3, 3, Cmid, C] (HWIO); b1: [Cmid];
-// b2: [C].  Grid: (tiles_h * tiles_w, output-channel splits, B).  Mpad =
-// Cmid rounded up to MGRAN, co_per_block a multiple of N2.  Global loads of
-// step s+1 are in flight (cp.async) while the tensor cores work on step s.
-__global__ void __launch_bounds__(NT) res_block_bf16_kernel(
-    const bf16* __restrict__ y, const bf16* __restrict__ w1,
-    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, bf16* __restrict__ out,
-    int H, int W, int C, int Cmid, int Mpad, int tiles_w, int co_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// Split barrier over the thread-block cluster: arrive (release this block's
+// shared-memory reads and writes), later wait for every block to arrive.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (fp32 accumulate), conv1 shared in a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int SKEW = 8;      // mid row padding (16 bytes): ldmatrix rows hit distinct banks
+constexpr int BK = 64;       // K per pipeline step: one 128-byte row of a staged operand
+constexpr int BM1 = 112;     // conv1 rows: the 100 halo pixels padded to 7 m16 tiles
+constexpr int BN1 = 64;      // mid channels per conv1 pass: 8 n8 tiles per warp
+constexpr int BMGRAN = 16;   // mid channels are padded to this (weights, shared memory)
+constexpr int BNS = 3;       // depth of the cp.async ring
+constexpr int BSTAGE1 = (BM1 + BN1) * BK;  // a conv1 step: y rows, then w1 rows
+// conv2's warp tile is 32 pixels x 8*NI channels (2 x 4 warps), chosen on
+// the host by C: NI = 2 (64 channels a pass) keeps every warp busy at C = 64.
+__host__ __device__ constexpr int bf16_n2(int NI) { return 32 * NI; }
+__host__ __device__ constexpr int bf16_stage2(int NI) { return bf16_n2(NI) * BK; }
+__host__ __device__ constexpr int bf16_region(int NI) {
+  return BNS * BSTAGE1 > BNS * bf16_stage2(NI) ? BNS * BSTAGE1 : BNS * bf16_stage2(NI);
+}
+// mid [HP][Mpad + SKEW], then the ring, 1024-byte aligned (the 128-byte
+// swizzle is a function of the shared-memory address)
+__host__ __device__ constexpr size_t bf16_mid_bytes(int Mpad) {
+  return ((size_t)HP * (Mpad + SKEW) * 2 + 1023) / 1024 * 1024;
+}
+
+// Staged operands are rows of BK = 64 bf16 (128 bytes) with K contiguous;
+// the 16-byte chunk j of row r is stored at chunk j ^ (r % 8), the 128-byte
+// swizzle of TMA and wgmma.  ldmatrix over 8 rows of one chunk column then
+// hits 8 distinct bank groups.
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * BK + ((((k >> 3) ^ row) & 7) << 3) + (k & 7);
+}
+
+// y, out: [B, H, W, C] (C % 8 == 0); b1: [Cmid]; b2: [C].  The weights come
+// K-major and zero-padded from the host (ops/fused_res_block.py::
+// bf16_weights): w1k [Mpad][Cp] (row m = w1[:, m]; Mpad = Cmid rounded up to
+// BMGRAN, Cp = C rounded up to BK), w2k [C][K2p] (row co, column t * Mpad + m
+// = w2[t / 3, t % 3, m, co]; K2p = 9 * Mpad rounded up to BK).  Grid:
+// (tiles_h * tiles_w, cs, B) in clusters of (1, cs, 1), the cs blocks of one
+// tile.  Block rank j computes mid channels [j*MS, (j+1)*MS) of the tile's
+// halo window, copies the others from its peers, and computes output
+// channels [j*co_per_block, (j+1)*co_per_block).
+template <int NI>
+__global__ void __launch_bounds__(NT, 2) res_block_bf16_kernel(
+    const bf16* __restrict__ y, const bf16* __restrict__ w1k,
+    const bf16* __restrict__ b1, const bf16* __restrict__ w2k,
+    const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
+    int Cmid, int Mpad, int Cp, int K2p, int MS, int tiles_w, int co_per_block) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int ms = Mpad + SKEW;
-  bf16* mid = reinterpret_cast<bf16*>(smem);   // [HP][ms]
-  bf16* stage = mid + HP * ms;                 // [2][STAGE]; HP * ms is a multiple of 8
+  bf16* mid = reinterpret_cast<bf16*>(smem);                       // [HP][ms]
+  bf16* ring = reinterpret_cast<bf16*>(smem + bf16_mid_bytes(Mpad));
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;                // mma fragment row, column pair
-  const int lrow = lane % 16, lcol = (lane / 16) * 8;  // this lane's ldmatrix row, column
+  const int g = lane / 4, q = lane % 4;                 // mma fragment row, column pair
+  const int lrow = lane % 16, lcol = (lane / 16) * 8;   // ldmatrix A: row, column
+  const int brow = (lane % 8) + (lane / 16) * 8;        // ldmatrix B (n-major): row
+  const int bcol = ((lane / 8) % 2) * 8;                // ... and column
   const int b = blockIdx.z;
   const int ty0 = (blockIdx.x / tiles_w) * TH;
   const int tx0 = (blockIdx.x % tiles_w) * TW;
   const size_t img = (size_t)b * H * W * C;
-  const bool c_vec = C % 8 == 0, m_vec = Cmid % 8 == 0;
+  const int rank = (int)cluster.block_rank(), cs = (int)cluster.num_blocks();
+  const int m_lo = rank * MS;                   // this block's first mid channel
+  const int nm = max(0, min(MS, Mpad - m_lo));  // ... and how many it computes
 
-  // ---- conv1: mid[112 x Mpad] = y_halo[112 x C] @ w1[C x Mpad] ------------
-  {
-    constexpr int YS = K1 + SKEW, WS = N1 + SKEW;
-    // step buffer: ys [M1][YS] (y halo rows), then ws [K1][WS] (w1 rows)
-    auto load = [&](int n0, int k0, bf16* ys) {
-      bf16* ws = ys + M1 * YS;
-      for (int i = tid; i < M1 * (K1 / 8); i += NT) {
-        const int p = i / (K1 / 8), kk = (i % (K1 / 8)) * 8;
+  // ---- conv1: mid[100 x nm] = y_halo[100 x C] @ w1[C x (m_lo .. m_lo + nm)] --
+  // Warp w < 7 owns m16 tile w of the halo window and all BN1 channels of
+  // the pass.
+  for (int n0 = 0; n0 < nm; n0 += BN1) {
+    float acc[BN1 / 8][4] = {};
+    auto load = [&](int s, bf16* st) {  // st: y [BM1][BK], w1 [BN1][BK]
+      const int k0 = s * BK;
+      for (int i = tid; i < BM1 * (BK / 8); i += NT) {
+        const int p = i / (BK / 8), kk = (i % (BK / 8)) * 8;
         const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-        const bool in = p < HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const bf16* src = in ? y + img + ((size_t)gy * W + gx) * C + k0 + kk : y;
-        stage8(ys + p * YS + kk, src, in ? C - k0 - kk : 0, c_vec);
+        const bool in = p < HP && gy >= 0 && gy < H && gx >= 0 && gx < W && k0 + kk < C;
+        cp_async16(st + swz(p, kk), in ? y + img + ((size_t)gy * W + gx) * C + k0 + kk : y,
+                   in ? 16 : 0);
       }
-      for (int i = tid; i < K1 * (N1 / 8); i += NT) {
-        const int k = i / (N1 / 8), nn = (i % (N1 / 8)) * 8;
-        const bool in = k0 + k < C;
-        const bf16* src = in ? w1 + (size_t)(k0 + k) * Cmid + n0 + nn : w1;
-        stage8(ws + k * WS + nn, src, in ? Cmid - n0 - nn : 0, m_vec);
+      bf16* ws = st + BM1 * BK;
+      for (int i = tid; i < BN1 * (BK / 8); i += NT) {
+        const int r = i / (BK / 8), kk = (i % (BK / 8)) * 8;
+        const bool in = n0 + r < nm;
+        cp_async16(ws + swz(r, kk), in ? w1k + (size_t)(m_lo + n0 + r) * Cp + k0 + kk : w1k,
+                   in ? 16 : 0);
       }
-      cp_async_commit();
     };
-    for (int n0 = 0; n0 < Mpad; n0 += N1) {
-      const int wn = n0 + warp * 16;        // this warp's 16 mid channels
-      const bool active = wn < Mpad;
-      float acc[7][2][4] = {};
-      load(n0, 0, stage);
-      for (int k0 = 0, s = 0; k0 < C; k0 += K1, ++s) {
-        const bf16* ys = stage + (s & 1) * STAGE;
-        const bf16* ws = ys + M1 * YS;
-        if (k0 + K1 < C) {
-          load(n0, k0 + K1, stage + ((s + 1) & 1) * STAGE);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (active) {
+    auto compute = [&](int, const bf16* st) {
+      if (warp >= 7) return;
+      const bf16* ws = st + BM1 * BK;
 #pragma unroll
-          for (int kk = 0; kk < K1; kk += 16) {
-            unsigned bfr[4];
-            ldsm_x4_trans(bfr, ws + (kk + lrow) * WS + warp * 16 + lcol);
+      for (int kk = 0; kk < BK; kk += 16) {
+        unsigned a[4];
+        ldsm_x4(a, st + swz(warp * 16 + lrow, kk + lcol));
 #pragma unroll
-            for (int mi = 0; mi < 7; ++mi) {
-              unsigned afr[4];
-              ldsm_x4(afr, ys + (mi * 16 + lrow) * YS + kk + lcol);
-              mma(acc[mi][0], afr, bfr[0], bfr[1]);
-              mma(acc[mi][1], afr, bfr[2], bfr[3]);
-            }
-          }
+        for (int nb = 0; nb < BN1 / 16; ++nb) {
+          if (n0 + nb * 16 >= nm) break;
+          unsigned bfr[4];
+          ldsm_x4(bfr, ws + swz(nb * 16 + brow, kk + bcol));
+          mma(acc[2 * nb], a, bfr[0], bfr[1]);
+          mma(acc[2 * nb + 1], a, bfr[2], bfr[3]);
         }
-        __syncthreads();
       }
-      if (active) {
+    };
+    ring_pipeline<BNS, BNS - 1, BSTAGE1>(Cp / BK, ring, load, compute);
+    if (warp < 7) {
 #pragma unroll
-        for (int mi = 0; mi < 7; ++mi)
+      for (int h = 0; h < 2; ++h) {
+        const int p = warp * 16 + g + 8 * h;
+        if (p >= HP) continue;
+        const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
+        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = mi * 16 + g + 8 * h;
-            if (p >= HP) continue;
-            const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-            for (int nj = 0; nj < 2; ++nj) {
-              const int n = wn + nj * 8 + 2 * q;
-              // 0 outside the image (the 3x3's zero padding) and in padded channels
-              const float v0 = inside && n < Cmid
-                                   ? leaky(acc[mi][nj][2 * h] + __bfloat162float(b1[n])) : 0.f;
-              const float v1 = inside && n + 1 < Cmid
-                                   ? leaky(acc[mi][nj][2 * h + 1] + __bfloat162float(b1[n + 1]))
-                                   : 0.f;
-              *reinterpret_cast<__nv_bfloat162*>(mid + p * ms + n) =
-                  __floats2bfloat162_rn(v0, v1);
-            }
-          }
+        for (int ni = 0; ni < BN1 / 8; ++ni) {
+          const int n = n0 + ni * 8 + 2 * q;  // local mid channel (nm % 16 == 0)
+          if (n >= nm) continue;
+          const int m = m_lo + n;
+          // 0 outside the image (the 3x3's zero padding) and in padded channels
+          const float v0 = inside && m < Cmid ? leaky(acc[ni][2 * h] + __bfloat162float(b1[m])) : 0.f;
+          const float v1 =
+              inside && m + 1 < Cmid ? leaky(acc[ni][2 * h + 1] + __bfloat162float(b1[m + 1])) : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(mid + p * ms + m) = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
+
+  // ---- the cluster's mid: copy the peers' slices (distributed shared memory)
+  cluster.sync();  // every block's slice is complete and visible to its peers
+  for (int r = 1; r < cs; ++r) {
+    const int src = (rank + r) % cs, lo = src * MS, n = min(MS, Mpad - lo);
+    if (n <= 0) continue;
+    const bf16* peer = cluster.map_shared_rank(mid, src);
+    for (int i = tid; i < HP * (n / 8); i += NT) {
+      const int at = (i / (n / 8)) * ms + lo + (i % (n / 8)) * 8;
+      *reinterpret_cast<int4*>(mid + at) = *reinterpret_cast<const int4*>(peer + at);
+    }
+  }
+  cluster_arrive();  // done reading the peers; waited for before exit
   __syncthreads();
 
-  // ---- conv2: 9 tap GEMMs [64 x Mpad] @ [Mpad x N2] from shared mid --------
+  // ---- conv2: [64 x 9*Mpad] @ [9*Mpad x co] from the halo window -----------
+  // Step s is K [s*BK, (s+1)*BK) of the tap-major K = t * Mpad + m; each k16
+  // lies in one tap, whose A rows are the halo rows shifted by the tap.
   {
-    constexpr int WS = N2 + SKEW;
-    // step buffer: ws [9][K2][WS] (w2 rows of all 9 taps)
-    auto load = [&](int c0, int co_end, int k0, bf16* ws) {
-      for (int i = tid; i < 9 * K2 * (N2 / 8); i += NT) {
-        const int t = i / (K2 * (N2 / 8)), r = i % (K2 * (N2 / 8));
-        const int k = r / (N2 / 8), nn = (r % (N2 / 8)) * 8;
-        const bool in = k0 + k < Cmid;
-        const bf16* src = in ? w2 + ((size_t)t * Cmid + k0 + k) * C + c0 + nn : w2;
-        stage8(ws + (t * K2 + k) * WS + nn, src, in ? co_end - c0 - nn : 0, c_vec);
-      }
-      cp_async_commit();
-    };
-    const int wm = warp / 4, wn = warp % 4;    // warp tile: 32 pixels x 32 channels
-    int hrow[2];                               // halo row of this lane's A rows, tap (0,0)
+    constexpr int N2 = bf16_n2(NI);
+    const int wm = warp / 4, wn = warp % 4;  // warp row, warp column
+    int hrow[2];                             // halo row of this lane's A row, tap (0,0)
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
       const int p = wm * 32 + mi * 16 + lrow;
       hrow[mi] = (p / TW) * HWIN + p % TW;
     }
+    const int K2 = 9 * Mpad;
     const int co_begin = blockIdx.y * co_per_block;
     const int co_end = min(C, co_begin + co_per_block);
     for (int c0 = co_begin; c0 < co_end; c0 += N2) {
-      const bool active = c0 + wn * 32 < co_end;
-      float acc[2][4][4] = {};
-      load(c0, co_end, 0, stage);
-      for (int k0 = 0, s = 0; k0 < Mpad; k0 += K2, ++s) {
-        const bf16* ws = stage + (s & 1) * STAGE;
-        if (k0 + K2 < Mpad) {
-          load(c0, co_end, k0 + K2, stage + ((s + 1) & 1) * STAGE);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
+      const bool active = c0 + wn * 8 * NI < co_end;
+      float acc[2][NI][4] = {};
+      auto load = [&](int s, bf16* st) {  // st: w2 [N2][BK]
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const int i = tid + j * NT;
+          const int r = i / (BK / 8), kk = (i % (BK / 8)) * 8;
+          const bool in = c0 + r < co_end;
+          cp_async16(st + swz(r, kk), in ? w2k + (size_t)(c0 + r) * K2p + s * BK + kk : w2k,
+                     in ? 16 : 0);
         }
-        __syncthreads();
-        if (active) {
+      };
+      auto compute = [&](int s, const bf16* st) {
+        if (!active) return;
 #pragma unroll
-          for (int t = 0; t < 9; ++t) {
-            const int toff = (t / 3) * HWIN + t % 3;
-            unsigned bfr[2][4];
-            ldsm_x4_trans(bfr[0], ws + (t * K2 + lrow) * WS + wn * 32 + lcol);
-            ldsm_x4_trans(bfr[1], ws + (t * K2 + lrow) * WS + wn * 32 + 16 + lcol);
+        for (int j = 0; j < BK / 16; ++j) {
+          const int k = s * BK + j * 16;
+          if (k >= K2) break;
+          const int t = k / Mpad, m = k - t * Mpad;
+          const int toff = (t / 3) * HWIN + t % 3;
+          unsigned bfr[NI / 2][4];
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              unsigned afr[4];
-              ldsm_x4(afr, mid + (hrow[mi] + toff) * ms + k0 + lcol);
-              mma(acc[mi][0], afr, bfr[0][0], bfr[0][1]);
-              mma(acc[mi][1], afr, bfr[0][2], bfr[0][3]);
-              mma(acc[mi][2], afr, bfr[1][0], bfr[1][1]);
-              mma(acc[mi][3], afr, bfr[1][2], bfr[1][3]);
+          for (int nb = 0; nb < NI / 2; ++nb)
+            ldsm_x4(bfr[nb], st + swz(wn * 8 * NI + nb * 16 + brow, j * 16 + bcol));
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            unsigned a[4];
+            ldsm_x4(a, mid + (hrow[mi] + toff) * ms + m + lcol);
+#pragma unroll
+            for (int nb = 0; nb < NI / 2; ++nb) {
+              mma(acc[mi][2 * nb], a, bfr[nb][0], bfr[nb][1]);
+              mma(acc[mi][2 * nb + 1], a, bfr[nb][2], bfr[nb][3]);
             }
           }
         }
-        __syncthreads();
-      }
+      };
+      ring_pipeline<BNS, BNS - 1, bf16_stage2(NI)>(K2p / BK, ring, load, compute);
       if (active) {
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
@@ -321,20 +366,22 @@ __global__ void __launch_bounds__(NT) res_block_bf16_kernel(
             if (gy >= H || gx >= W) continue;
             const size_t row = img + ((size_t)gy * W + gx) * C;
 #pragma unroll
-            for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int co = c0 + wn * 32 + nj * 8 + 2 * q + e;
-                if (co >= co_end) continue;
-                const bf16 r = __float2bfloat16_rn(
-                    leaky(acc[mi][nj][2 * h + e] + __bfloat162float(b2[co])));
-                out[row + co] = __float2bfloat16_rn(__bfloat162float(y[row + co]) +
-                                                    __bfloat162float(r));
-              }
+            for (int ni = 0; ni < NI; ++ni) {
+              const int co = c0 + wn * 8 * NI + ni * 8 + 2 * q;  // co_end is even
+              if (co >= co_end) continue;
+              // conv2's result rounds to bf16, then adds to y in bf16
+              const __nv_bfloat162 r = __floats2bfloat162_rn(
+                  leaky(acc[mi][ni][2 * h] + __bfloat162float(b2[co])),
+                  leaky(acc[mi][ni][2 * h + 1] + __bfloat162float(b2[co + 1])));
+              const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(y + row + co);
+              *reinterpret_cast<__nv_bfloat162*>(out + row + co) = __floats2bfloat162_rn(
+                  __low2float(yv) + __low2float(r), __high2float(yv) + __high2float(r));
+            }
           }
       }
     }
   }
+  cluster_wait();  // no block exits while a peer may still read its mid
 }
 
 // ---------------------------------------------------------------------------
@@ -372,7 +419,6 @@ __host__ __device__ constexpr int f32_region(int NI) {
 }
 constexpr int FGROUPS = HP * (FK2 / 8);               // 8-channel groups of a chunk
 constexpr int FPRE = (FGROUPS + NT - 1) / NT;         // ... per thread
-constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 __device__ __forceinline__ unsigned to_tf32(float x) {
   unsigned r;
@@ -437,11 +483,6 @@ __device__ __forceinline__ void store_split8(float* dst, const float4& lo4, cons
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
-}
-
 // Stage the first n (any int) of 4 floats from global `src` into shared
 // `dst`, zero-filling the rest: one cp.async where the run is 16-byte
 // aligned, else element by element.
@@ -452,29 +493,6 @@ __device__ __forceinline__ void stage4(float* dst, const float* src, int n, bool
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[i] = i < n ? src[i] : 0.f;
   }
-}
-
-// Run `steps` steps through an NS-slot ring of SLOT floats: load(s, slot)
-// issues step s's cp.async copies, compute(s, slot) consumes them.  Loads
-// run NS - 1 steps ahead; one barrier per step.  Returns with the ring idle.
-template <int NS, int SLOT, typename Load, typename Compute>
-__device__ __forceinline__ void ring_pipeline(int steps, float* ring, Load load,
-                                              Compute compute) {
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < steps) load(s, ring + s * SLOT);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<NS - 2>();  // step s has landed
-    __syncthreads();          // ... for every thread; slot (s - 1) is free
-    const int next = s + NS - 1;
-    if (next < steps) load(next, ring + (next % NS) * SLOT);
-    cp_async_commit();
-    compute(s, ring + (s % NS) * SLOT);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // y, out: [B, H, W, C]; b1: [Cmid]; b2: [C].  The weights come split into
@@ -554,7 +572,7 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
         }
         add_partials(acc, part);
       };
-      ring_pipeline<FNS1, FSTAGE1>((C + FK1 - 1) / FK1, ring, load, compute);
+      ring_pipeline<FNS1, FNS1 - 1, FSTAGE1>((C + FK1 - 1) / FK1, ring, load, compute);
       if (warp < 7) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -667,7 +685,7 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
         add_partials(acc, part);
       };
       fetch(0);
-      ring_pipeline<FNS2, FSTAGE2>(nchunks * 9, ring, load, compute);
+      ring_pipeline<FNS2, FNS2 - 1, FSTAGE2>(nchunks * 9, ring, load, compute);
       if (active) {
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
@@ -699,70 +717,42 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, const void* y, const void* w1, const void* b1,
-           const void* w2, const void* b2, void* out, int B, int H, int W, int C,
-           int Cmid, int Mpad, size_t smem, int co_chunk, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cmid <= 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, max_smem = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidConfiguration;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-
-  // Split each tile's output channels over `s` blocks, each of which
-  // recomputes conv1: pick the s that minimises (waves of blocks on the SMs)
-  // x (one block's MACs).  Small grids (13x13, 26x26 at batch 8) split;
-  // grids that already fill the card do not.
-  const int tiles_w = ceil_div(W, TW), tiles = ceil_div(H, TH) * tiles_w;
-  const int chunks = ceil_div(C, co_chunk);
-  const double conv1 = (double)HP * C * Mpad, conv2_chunk = 64.0 * 9 * Mpad * co_chunk;
-  int co_per_block = chunks * co_chunk;
-  double best = -1;
-  for (int s = 1; s <= chunks; ++s) {
-    const int per_block = ceil_div(chunks, s);
-    const long blocks = (long)tiles * B * ceil_div(chunks, per_block);
-    const double cost = (double)((blocks + (long)sms * per_sm - 1) / ((long)sms * per_sm)) *
-                        (conv1 + conv2_chunk * per_block);
-    if (best < 0 || cost < best) {
-      best = cost;
-      co_per_block = per_block * co_chunk;
-    }
-  }
-  const dim3 grid(tiles, ceil_div(C, co_per_block), B);
-
-  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(y), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out),
-      H, W, C, Cmid, Mpad, tiles_w, co_per_block);
-  return (int)cudaGetLastError();
-}
-
-// The fp32 launch.  conv2's warp tile is 32 x 32 (NI = 4) where C >= 512
-// (26x26 and 13x13 at 416): measured on an H100 at batch 8, it beats the
-// 32 x 16 tile there, and loses where C is small (C = 64 at 208x208 would
-// leave half of its 128 channels idle).  Each tile's output channels (and,
-// with them, its mid channels) are split over a cluster of cs blocks: pick
-// the cs that minimises (waves of clusters on the card) x (one block's
-// MACs), conv1's share HP*C*MS plus conv2 on co_per_block channels.  Small
-// grids (13x13, 26x26 at batch 8) cluster; grids that already fill the
-// card do not.  Plans are cached by shape: the occupancy queries cost host
-// time.
-struct F32Plan {
-  int dev, B, H, W, C, Cmid;
-  int ni, cs, ms_chunk, co_per_block;
+// Each tile's output channels (and, with them, its mid channels) are split
+// over a cluster of cs blocks: the planner picks the cs that minimises (waves
+// of clusters on the card, from cudaOccupancyMaxActiveClusters) x (one
+// block's MACs: conv1's share HP*C*MS plus conv2 on co_per_block channels).
+// Small grids (13x13, 26x26 at batch 8) cluster; grids that already fill the
+// card do not.  The variant (the kernel's template argument) is picked by C:
+//   fp32: conv2's warp tile is 32 x 32 (NI = 4) where C >= 512 (26x26 and
+//     13x13 at 416): measured on an H100 at batch 8, it beats the 32 x 16
+//     tile there, and loses where C is small (C = 64 at 208x208 would leave
+//     half of its 128 channels idle);
+//   bf16: NI = 4 (128 channels a pass) where C >= 128, else NI = 2, so that
+//     C = 64 keeps all 8 warps busy.
+// Plans are cached by (device, dtype, shape): the occupancy queries and
+// cudaFuncSetAttribute cost host time, and run once per shape.
+struct Plan {
+  int dev, bf16, B, H, W, C, Cmid;
+  int variant, cs, ms_chunk, co_per_block;
   size_t smem;
+};
+
+template <int NI>
+struct F32Kernel {
+  static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2;
+  static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<NI>); }
+  static size_t smem(int, int ms_chunk) {
+    return ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
+  }
+};
+
+template <int NI>
+struct Bf16Kernel {
+  static constexpr int VARIANT = NI, N2 = bf16_n2(NI), MGRAN = BMGRAN, MSG = BMGRAN;
+  static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<NI>); }
+  static size_t smem(int Mpad, int) {  // + 1024: the ring's alignment
+    return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(NI) * sizeof(bf16);
+  }
 };
 
 cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, void* stream,
@@ -781,41 +771,40 @@ cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, void* stream,
   return cfg;
 }
 
-template <int NI>
-int f32_split(int B, int H, int W, int C, int Cmid, F32Plan* best) {
+template <class K>
+int split(Plan* best) {
   int max_smem = 0;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                          best->dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(res_block_f32_kernel<NI>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    e = cudaFuncSetAttribute(K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (e != cudaSuccess) return (int)e;
-  const int Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN;
-  const int tiles = ceil_div(H, TH) * ceil_div(W, TW);
-  const int chunks = ceil_div(C, f32_n2(NI)), kchunks = Mpad / FK2;
+  const int B = best->B, C = best->C;
+  const int Mpad = ceil_div(best->Cmid, K::MGRAN) * K::MGRAN;
+  const int tiles = ceil_div(best->H, TH) * ceil_div(best->W, TW);
+  const int chunks = ceil_div(C, K::N2), kchunks = Mpad / K::MSG;
   double best_cost = -1;
   for (int s = 1; s <= MAX_CLUSTER && s <= chunks && s <= kchunks; ++s) {
     const int per_block = ceil_div(chunks, s);
     if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
-    const int ms_chunk = ceil_div(kchunks, s) * FK2;
-    const size_t smem =
-        ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
+    const int ms_chunk = ceil_div(kchunks, s) * K::MSG;
+    const size_t smem = K::smem(Mpad, ms_chunk);
     if (smem > (size_t)max_smem) continue;
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = cluster_config(dim3(tiles, s, B), smem, nullptr, attr);
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, res_block_f32_kernel<NI>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
     if (e != cudaSuccess) return (int)e;
     if (clusters < 1) continue;
     const double waves = (double)(((long)tiles * B + clusters - 1) / clusters);
     const double cost = waves * ((double)HP * C * ms_chunk +
-                                 64.0 * 9 * Mpad * per_block * f32_n2(NI));
+                                 64.0 * 9 * Mpad * per_block * K::N2);
     if (best_cost < 0 || cost < best_cost) {
       best_cost = cost;
-      best->ni = NI;
+      best->variant = K::VARIANT;
       best->cs = s;
       best->ms_chunk = ms_chunk;
-      best->co_per_block = per_block * f32_n2(NI);
+      best->co_per_block = per_block * K::N2;
       best->smem = smem;
     }
   }
@@ -824,26 +813,31 @@ int f32_split(int B, int H, int W, int C, int Cmid, F32Plan* best) {
 }
 
 std::mutex plan_mutex;
-F32Plan plans[64];
+Plan plans[64];
 int n_plans = 0;
 
-int f32_plan(int B, int H, int W, int C, int Cmid, F32Plan* out) {
+int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cmid <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (bf16 && C % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows of y
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> lock(plan_mutex);
   for (int i = 0; i < n_plans; ++i) {
-    const F32Plan& p = plans[i];
-    if (p.dev == dev && p.B == B && p.H == H && p.W == W && p.C == C && p.Cmid == Cmid) {
+    const Plan& p = plans[i];
+    if (p.dev == dev && p.bf16 == bf16 && p.B == B && p.H == H && p.W == W && p.C == C &&
+        p.Cmid == Cmid) {
       *out = p;
       return 0;
     }
   }
-  F32Plan plan = {dev, B, H, W, C, Cmid, 0, 0, 0, 0, 0};
-  const int rc = C >= 512 ? f32_split<4>(B, H, W, C, Cmid, &plan)
-                          : f32_split<2>(B, H, W, C, Cmid, &plan);
+  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0};
+  int rc;
+  if (bf16)
+    rc = C >= 128 ? split<Bf16Kernel<4>>(&plan) : split<Bf16Kernel<2>>(&plan);
+  else
+    rc = C >= 512 ? split<F32Kernel<4>>(&plan) : split<F32Kernel<2>>(&plan);
   if (rc != 0) return rc;
   if (n_plans < (int)(sizeof(plans) / sizeof(plans[0]))) plans[n_plans++] = plan;
   *out = plan;
@@ -856,14 +850,14 @@ extern "C" {
 
 // Each returns the launch's cudaError_t (0 on success).  All pointers are
 // device pointers to contiguous arrays; the kernel runs on `stream` and does
-// not synchronise.  The f32 weights are the split, padded, K-major operands
-// described at res_block_f32_kernel; a refused cluster launch returns its
-// error (there is no other path).
+// not synchronise.  The weights are the host layouts described at each
+// kernel (f32: split, padded, K-major; bf16: padded, K-major); a refused
+// cluster launch returns its error (there is no other path).
 int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
                              const void* w2s, const void* b2, void* out, int B,
                              int H, int W, int C, int Cmid, void* stream) {
-  F32Plan plan;
-  const int e = f32_plan(B, H, W, C, Cmid, &plan);
+  Plan plan;
+  const int e = get_plan(0, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
   const int Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN, Cp = ceil_div(C, FK1) * FK1;
   const int tiles_w = ceil_div(W, TW);
@@ -871,7 +865,7 @@ int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
   const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
                                                 plan.smem, stream, attr);
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, plan.ni == 4 ? res_block_f32_kernel<4> : res_block_f32_kernel<2>,
+      &cfg, plan.variant == 4 ? res_block_f32_kernel<4> : res_block_f32_kernel<2>,
       static_cast<const float*>(y), static_cast<const float*>(w1s),
       static_cast<const float*>(b1), static_cast<const float*>(w2s),
       static_cast<const float*>(b2), static_cast<float*>(out), H, W, C, Cmid, Mpad, Cp,
@@ -880,20 +874,32 @@ int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
   return (int)cudaGetLastError();
 }
 
-int yolo_fused_res_block_bf16(const void* y, const void* w1, const void* b1,
-                              const void* w2, const void* b2, void* out, int B,
+int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
+                              const void* w2k, const void* b2, void* out, int B,
                               int H, int W, int C, int Cmid, void* stream) {
-  const int Mpad = ceil_div(Cmid, MGRAN) * MGRAN;
-  const size_t smem = ((size_t)HP * (Mpad + SKEW) + 2 * STAGE) * sizeof(bf16);
-  return launch<bf16>(res_block_bf16_kernel, y, w1, b1, w2, b2, out, B, H, W, C,
-                      Cmid, Mpad, smem, N2, stream);
+  Plan plan;
+  const int e = get_plan(1, B, H, W, C, Cmid, &plan);
+  if (e != 0) return e;
+  const int Mpad = ceil_div(Cmid, BMGRAN) * BMGRAN, Cp = ceil_div(C, BK) * BK;
+  const int K2p = ceil_div(9 * Mpad, BK) * BK, tiles_w = ceil_div(W, TW);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
+                                                plan.smem, stream, attr);
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, plan.variant == 4 ? res_block_bf16_kernel<4> : res_block_bf16_kernel<2>,
+      static_cast<const bf16*>(y), static_cast<const bf16*>(w1k),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2k),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W, C, Cmid, Mpad, Cp, K2p,
+      plan.ms_chunk, tiles_w, plan.co_per_block);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
 }
 
-// The cluster size the f32 launch picks for this shape on the current
-// device (1: no split), or minus its cudaError_t.
-int yolo_fused_res_block_f32_cluster(int B, int H, int W, int C, int Cmid) {
-  F32Plan plan;
-  const int e = f32_plan(B, H, W, C, Cmid, &plan);
+// The cluster size the launch of this dtype (bf16: 1, fp32: 0) picks for
+// this shape on the current device (1: no split), or minus its cudaError_t.
+int yolo_fused_res_block_cluster(int bf16, int B, int H, int W, int C, int Cmid) {
+  Plan plan;
+  const int e = get_plan(bf16, B, H, W, C, Cmid, &plan);
   return e != 0 ? -e : plan.cs;
 }
 

@@ -18,7 +18,9 @@ The fp32 kernel takes each product as three TF32 products (3xTF32: lo*hi +
 hi*lo + hi*hi, fp32 accumulation).  Its weights come split by
 :func:`split_tf32`, zero-padded, K-major and interleaved
 (:func:`tf32_weights`, made once and cached on the weight tensor); it splits
-the activations itself, the same way.
+the activations itself, the same way.  The bf16 kernel takes its weights
+K-major and zero-padded (:func:`bf16_weights`, cached the same way), so
+either dtype holds a second copy of the residual-block weights on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the fp32 kernel's padding of its weight operands (FK1 and FMGRAN in the source)
 _F32_K1 = 32
 _F32_MGRAN = 32
+# the bf16 kernel's: K per pipeline step (BK) and the mid padding (BMGRAN)
+_BF16_K = 64
+_BF16_MGRAN = 16
 
 
 def _split_w1(w1: torch.Tensor, c: int) -> torch.Tensor:
@@ -111,6 +116,31 @@ def _interleave(wk: torch.Tensor) -> torch.Tensor:
     return parts.reshape(n, k // 8, 2, 4, 2).transpose(2, 3).reshape(n, 2 * k)
 
 
+def _pad_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _cached_layout(w1: torch.Tensor, w2: torch.Tensor, attr: str, make):
+    """``make(w1, w2)``, cached on ``w1`` as ``attr`` until either weight
+    moves or is written in place."""
+    key = (w1.data_ptr(), _version(w1), w2.data_ptr(), _version(w2))
+    cached = getattr(w1, attr, None)
+    if cached is None or cached[0] != key:
+        cached = (key, *make(w1, w2))
+        setattr(w1, attr, cached)
+    return cached[1:]
+
+
+def _tf32_layout(w1, w2):
+    c, cmid = w1.shape[-2:]
+    mpad, cp = _pad_to(cmid, _F32_MGRAN), _pad_to(c, _F32_K1)
+    w1t = w1.new_zeros(mpad, cp, dtype=torch.float32)
+    w1t[:cmid, :c] = w1.reshape(c, cmid).t()
+    w2t = w2.new_zeros(c, 9, mpad, dtype=torch.float32)
+    w2t[:, :, :cmid] = w2.reshape(9, cmid, c).permute(2, 0, 1)
+    return _interleave(w1t), _interleave(w2t.reshape(c * 9, mpad))
+
+
 def tf32_weights(w1: torch.Tensor, w2: torch.Tensor):
     """The fp32 kernel's weight operands: ``w1`` [C, Cmid] and ``w2`` [3, 3,
     Cmid, C] laid out K-major, zero-padded, split by :func:`split_tf32` and
@@ -118,29 +148,39 @@ def tf32_weights(w1: torch.Tensor, w2: torch.Tensor):
     2 * Mpad], Mpad = Cmid rounded up to 32, Cp = C rounded up to 32.  Made
     once and cached on ``w1`` until either weight moves or is written in
     place."""
-    key = (w1.data_ptr(), _version(w1), w2.data_ptr(), _version(w2))
-    cached = getattr(w1, "_tf32_weights", None)
-    if cached is None or cached[0] != key:
-        c, cmid = w1.shape[-2:]
-        mpad = -(-cmid // _F32_MGRAN) * _F32_MGRAN
-        cp = -(-c // _F32_K1) * _F32_K1
-        w1t = w1.new_zeros(mpad, cp, dtype=torch.float32)
-        w1t[:cmid, :c] = w1.reshape(c, cmid).t()
-        w2t = w2.new_zeros(c, 9, mpad, dtype=torch.float32)
-        w2t[:, :, :cmid] = w2.reshape(9, cmid, c).permute(2, 0, 1)
-        cached = (key, _interleave(w1t), _interleave(w2t.reshape(c * 9, mpad)))
-        w1._tf32_weights = cached
-    return cached[1:]
+    return _cached_layout(w1, w2, "_tf32_weights", _tf32_layout)
+
+
+def _bf16_layout(w1, w2):
+    c, cmid = w1.shape[-2:]
+    mpad, cp = _pad_to(cmid, _BF16_MGRAN), _pad_to(c, _BF16_K)
+    w1k = w1.new_zeros(mpad, cp)
+    w1k[:cmid, :c] = w1.reshape(c, cmid).t()
+    w2t = w2.new_zeros(c, 9, mpad)
+    w2t[:, :, :cmid] = w2.reshape(9, cmid, c).permute(2, 0, 1)
+    w2k = w2.new_zeros(c, _pad_to(9 * mpad, _BF16_K))
+    w2k[:, :9 * mpad] = w2t.reshape(c, 9 * mpad)
+    return w1k, w2k
+
+
+def bf16_weights(w1: torch.Tensor, w2: torch.Tensor):
+    """The bf16 kernel's weight operands, K-major and zero-padded: w1k
+    [Mpad, Cp] (row m is ``w1[:, m]``) and w2k [C, K2p] (row co holds
+    ``w2[t // 3, t % 3, m, co]`` at column ``t * Mpad + m``, taps in
+    row-major order), Mpad = Cmid rounded up to 16, Cp = C rounded up to 64,
+    K2p = 9 * Mpad rounded up to 64.  Made once and cached on ``w1`` until
+    either weight moves or is written in place."""
+    return _cached_layout(w1, w2, "_bf16_weights", _bf16_layout)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """(the C function ``yolo_fused_res_block_<name>``, the error-string
-    function); "f32" and "bf16" launch, "f32_cluster" plans."""
+    function); "f32" and "bf16" launch, "cluster" plans."""
     lib = _build.load("fused_res_block")
     fn = getattr(lib, f"yolo_fused_res_block_{name}")
-    if name == "f32_cluster":
-        fn.argtypes = [ctypes.c_int] * 5
+    if name == "cluster":
+        fn.argtypes = [ctypes.c_int] * 6
     else:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -149,15 +189,16 @@ def _kernel(name: str):
     return fn, lib.yolo_cuda_error_string
 
 
-def f32_cluster_size(b: int, h: int, w: int, c: int, cmid: int) -> int:
-    """The thread-block cluster the fp32 kernel launches for [b, h, w, c]
+def cluster_size(b: int, h: int, w: int, c: int, cmid: int,
+                 dtype: torch.dtype = torch.float32) -> int:
+    """The thread-block cluster the ``dtype`` kernel launches for [b, h, w, c]
     with ``cmid`` mid channels on the current CUDA device: the number of
     blocks that split one tile's channels (1: none)."""
-    fn, err_str = _kernel("f32_cluster")
-    cs = fn(b, h, w, c, cmid)
+    fn, err_str = _kernel("cluster")
+    cs = fn(int(dtype == torch.bfloat16), b, h, w, c, cmid)
     if cs < 0:
-        raise RuntimeError(f"fused_res_block: no fp32 launch for {(b, h, w, c, cmid)}: "
-                           f"{err_str(-cs).decode()}")
+        raise RuntimeError(f"fused_res_block: no {_KERNEL_DTYPES[dtype]} launch for "
+                           f"{(b, h, w, c, cmid)}: {err_str(-cs).decode()}")
     return cs
 
 
@@ -165,7 +206,8 @@ def fused_res_block(y, w1, b1, w2, b2):
     """Fused residual block on [B, H, W, C].
 
     A CUDA ``y`` runs the hand-written kernel (every operand on the same
-    card, one dtype, float32 or bfloat16, contiguous) or raises; a CPU ``y``
+    card, one dtype, float32 or bfloat16, contiguous; bf16 needs C % 8 == 0)
+    or raises; a CPU ``y``
     runs :func:`fused_res_block_ref`.  ``fused_res_block.launches`` counts
     kernel launches.
     """
@@ -183,12 +225,14 @@ def fused_res_block(y, w1, b1, w2, b2):
             f"bfloat16; got {[t.dtype for t in operands]}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("fused_res_block: operands must be contiguous")
+    if y.dtype == torch.bfloat16 and (y.shape[3] % 8 or y.data_ptr() % 16):
+        raise ValueError("fused_res_block: the bf16 kernel reads y in 16-byte rows: "
+                         f"C must be a multiple of 8 (got {y.shape[3]}) and y 16-byte aligned")
     b, h, w, c = y.shape
     cmid = w1.shape[1]
     out = torch.empty_like(y)
     fn, err_str = _kernel(_KERNEL_DTYPES[y.dtype])
-    if y.dtype == torch.float32:
-        w1, w2 = tf32_weights(w1_arg, w2)
+    w1, w2 = (tf32_weights if y.dtype == torch.float32 else bf16_weights)(w1_arg, w2)
     ptrs = (y, w1, b1, w2, b2, out)
     with torch.cuda.device(y.device):
         rc = fn(*[t.data_ptr() for t in ptrs], b, h, w, c, cmid,

@@ -64,6 +64,7 @@
 // card's bytes (PERF.md).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -98,15 +99,6 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -161,22 +153,24 @@ __device__ __forceinline__ void cluster_wait() {
 constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (fp32 accumulate), conv1 shared in a cluster
+// bf16: wgmma (fp32 accumulate), conv1 shared in a cluster
 // ---------------------------------------------------------------------------
 
 constexpr int SKEW = 8;      // mid row padding (16 bytes): ldmatrix rows hit distinct banks
 constexpr int BK = 64;       // K per pipeline step: one 128-byte row of a staged operand
-constexpr int BM1 = 112;     // conv1 rows: the 100 halo pixels padded to 7 m16 tiles
-constexpr int BN1 = 64;      // mid channels per conv1 pass: 8 n8 tiles per warp
+constexpr int BM1 = 128;     // conv1 rows: the 100 halo pixels padded to 2 x m64
+constexpr int BN1 = 128;     // mid channels per conv1 pass
 constexpr int BMGRAN = 16;   // mid channels are padded to this (weights, shared memory)
-constexpr int BNS = 3;       // depth of the cp.async ring
+constexpr int BNS1 = 3;      // depth of conv1's cp.async ring
+constexpr int BNS2 = 3;      // depth of conv2's TMA ring
+constexpr int BNT = 288;     // threads: 2 consumer warpgroups and conv2's producer warp
 constexpr int BSTAGE1 = (BM1 + BN1) * BK;  // a conv1 step: y rows, then w1 rows
-// conv2's warp tile is 32 pixels x 8*NI channels (2 x 4 warps), chosen on
-// the host by C: NI = 2 (64 channels a pass) keeps every warp busy at C = 64.
-__host__ __device__ constexpr int bf16_n2(int NI) { return 32 * NI; }
-__host__ __device__ constexpr int bf16_stage2(int NI) { return bf16_n2(NI) * BK; }
-__host__ __device__ constexpr int bf16_region(int NI) {
-  return BNS * BSTAGE1 > BNS * bf16_stage2(NI) ? BNS * BSTAGE1 : BNS * bf16_stage2(NI);
+// conv2: one warpgroup per V output channels, 2V channels a pass (V, the
+// kernel's template argument, is chosen on the host: 32 at C = 64, so that
+// both warpgroups have work; 64 or 128 above).
+__host__ __device__ constexpr int bf16_stage2(int V) { return 2 * V * BK; }
+__host__ __device__ constexpr int bf16_region(int V) {
+  return BNS1 * BSTAGE1 > BNS2 * bf16_stage2(V) ? BNS1 * BSTAGE1 : BNS2 * bf16_stage2(V);
 }
 // mid [HP][Mpad + SKEW], then the ring, 1024-byte aligned (the 128-byte
 // swizzle is a function of the shared-memory address)
@@ -184,108 +178,321 @@ __host__ __device__ constexpr size_t bf16_mid_bytes(int Mpad) {
   return ((size_t)HP * (Mpad + SKEW) * 2 + 1023) / 1024 * 1024;
 }
 
-// Staged operands are rows of BK = 64 bf16 (128 bytes) with K contiguous;
-// the 16-byte chunk j of row r is stored at chunk j ^ (r % 8), the 128-byte
-// swizzle of TMA and wgmma.  ldmatrix over 8 rows of one chunk column then
-// hits 8 distinct bank groups.
-__device__ __forceinline__ int swz(int row, int k) {
-  return row * BK + ((((k >> 3) ^ row) & 7) << 3) + (k & 7);
+// wgmma's descriptor of a K-major operand as TMA stages it: rows of BK = 64
+// bf16 (128 bytes), the 16-byte chunk j of row r stored at chunk j ^ (r % 8)
+// (the 128-byte swizzle), 8-row groups 1024 bytes apart, starting at p, a
+// 1024-byte-aligned row; +2 moves it 16 K (32 bytes) on.
+__device__ __forceinline__ uint64_t wgmma_desc(const bf16* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most `pending` committed wgmma groups are in flight.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending) : "memory");
+}
+// Registers that a wgmma in flight reads or writes: the compiler must not
+// move their uses across this point, nor reuse them before it.
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void fence_reg(unsigned& r) { asm volatile("" : "+r"(r) :: "memory"); }
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(r[i]);
+}
+
+// mbarriers in shared memory: init (count arrivals a phase), arrive,
+// arrive announcing `bytes` of TMA to come, wait for phase `parity` to
+// complete.  A wait that lasts seconds traps (a launch error, not a hang).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+// TMA: the box at the given coordinates (innermost first) of a tensor map
+// into shared `dst`, its bytes counted in on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x0, int x1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(x0), "r"(x1) : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x0, int x1, int x2, int x3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(x0), "r"(x1), "r"(x2), "r"(x3)
+      : "memory");
+}
+
+// d[64 x N] += A[64 x 16] @ B[16 x N], B K-major in shared memory (db); A
+// in shared memory too (ss, da) or in registers (rs: this warp's 16 rows as
+// the m16n8k16 A fragment).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[4], uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
 }
 
 // y, out: [B, H, W, C] (C % 8 == 0); b1: [Cmid]; b2: [C].  The weights come
 // K-major and zero-padded from the host (ops/fused_res_block.py::
 // bf16_weights): w1k [Mpad][Cp] (row m = w1[:, m]; Mpad = Cmid rounded up to
 // BMGRAN, Cp = C rounded up to BK), w2k [C][K2p] (row co, column t * Mpad + m
-// = w2[t / 3, t % 3, m, co]; K2p = 9 * Mpad rounded up to BK).  Grid:
-// (tiles_h * tiles_w, cs, B) in clusters of (1, cs, 1), the cs blocks of one
-// tile.  Block rank j computes mid channels [j*MS, (j+1)*MS) of the tile's
-// halo window, copies the others from its peers, and computes output
-// channels [j*co_per_block, (j+1)*co_per_block).
-template <int NI>
-__global__ void __launch_bounds__(NT, 2) res_block_bf16_kernel(
-    const bf16* __restrict__ y, const bf16* __restrict__ w1k,
-    const bf16* __restrict__ b1, const bf16* __restrict__ w2k,
-    const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
-    int Cmid, int Mpad, int Cp, int K2p, int MS, int tiles_w, int co_per_block) {
+// = w2[t / 3, t % 3, m, co]; K2p = 9 * Mpad rounded up to BK).  All three
+// arrive as TMA descriptors (y_map: boxes of BK channels x the 10 x 10 halo
+// window, out-of-image pixels read as zeros; w1_map: BK x BN1; w2_map: BK x
+// 2V), 128-byte swizzled.  Grid: (tiles_h * tiles_w, cs, B) in clusters of
+// (1, cs, 1), the cs blocks of one tile.  Block rank j computes mid channels
+// [j*MS, (j+1)*MS) of the tile's halo window, copies the others from its
+// peers, and computes output channels [j*co_per_block, (j+1)*co_per_block).
+//
+// Warp 8 is the producer: one thread issues every TMA load, conv1's ring then
+// conv2's, each slot with a `full` barrier (its bytes in) and an `empty`
+// barrier (the 8 consumer warps out).  Warps 0-7 are two consumer
+// warpgroups.
+template <int V>
+__global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
+    const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap w1_map,
+    const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ y,
+    const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ out, int H,
+    int W, int C, int Cmid, int Mpad, int Cp, int K2p, int MS, int tiles_w, int co_per_block) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int ms = Mpad + SKEW;
   bf16* mid = reinterpret_cast<bf16*>(smem);                       // [HP][ms]
   bf16* ring = reinterpret_cast<bf16*>(smem + bf16_mid_bytes(Mpad));
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(ring + bf16_region(V));
+  uint64_t* empty1 = full1 + BNS1;
+  uint64_t* full2 = empty1 + BNS1;
+  uint64_t* empty2 = full2 + BNS2;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < BNS1; ++i) {
+      mbar_init(&full1[i], 1);
+      mbar_init(&empty1[i], 8);
+    }
+    for (int i = 0; i < BNS2; ++i) {
+      mbar_init(&full2[i], 1);
+      mbar_init(&empty2[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;                 // mma fragment row, column pair
-  const int lrow = lane % 16, lcol = (lane / 16) * 8;   // ldmatrix A: row, column
-  const int brow = (lane % 8) + (lane / 16) * 8;        // ldmatrix B (n-major): row
-  const int bcol = ((lane / 8) % 2) * 8;                // ... and column
+  const int wg = warp / 4, wq = warp % 4;               // warpgroup, its warp
+  const int g = lane / 4, q = lane % 4;                 // accumulator row, column pair
   const int b = blockIdx.z;
   const int ty0 = (blockIdx.x / tiles_w) * TH;
   const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const size_t img = (size_t)b * H * W * C;
   const int rank = (int)cluster.block_rank(), cs = (int)cluster.num_blocks();
   const int m_lo = rank * MS;                   // this block's first mid channel
   const int nm = max(0, min(MS, Mpad - m_lo));  // ... and how many it computes
+  const int steps1 = Cp / BK, steps2 = K2p / BK;
+  const int co_begin = blockIdx.y * co_per_block;
+  const int co_end = min(C, co_begin + co_per_block);
+  const int passes2 = (co_end - co_begin + 2 * V - 1) / (2 * V);
+
+  // conv2's TMA load of iteration `it` (pass it / steps2, step it % steps2)
+  auto load2 = [&](int it) {
+    const int slot = it % BNS2;
+    if (it >= BNS2) mbar_wait(&empty2[slot], (it / BNS2 - 1) & 1);
+    mbar_expect_tx(&full2[slot], bf16_stage2(V) * (int)sizeof(bf16));
+    tma_load_2d(ring + slot * bf16_stage2(V), &w2_map, &full2[slot], (it % steps2) * BK,
+                co_begin + (it / steps2) * 2 * V);
+  };
 
   // ---- conv1: mid[100 x nm] = y_halo[100 x C] @ w1[C x (m_lo .. m_lo + nm)] --
-  // Warp w < 7 owns m16 tile w of the halo window and all BN1 channels of
-  // the pass.
-  for (int n0 = 0; n0 < nm; n0 += BN1) {
-    float acc[BN1 / 8][4] = {};
-    auto load = [&](int s, bf16* st) {  // st: y [BM1][BK], w1 [BN1][BK]
-      const int k0 = s * BK;
-      for (int i = tid; i < BM1 * (BK / 8); i += NT) {
-        const int p = i / (BK / 8), kk = (i % (BK / 8)) * 8;
-        const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-        const bool in = p < HP && gy >= 0 && gy < H && gx >= 0 && gx < W && k0 + kk < C;
-        cp_async16(st + swz(p, kk), in ? y + img + ((size_t)gy * W + gx) * C + k0 + kk : y,
-                   in ? 16 : 0);
-      }
-      bf16* ws = st + BM1 * BK;
-      for (int i = tid; i < BN1 * (BK / 8); i += NT) {
-        const int r = i / (BK / 8), kk = (i % (BK / 8)) * 8;
-        const bool in = n0 + r < nm;
-        cp_async16(ws + swz(r, kk), in ? w1k + (size_t)(m_lo + n0 + r) * Cp + k0 + kk : w1k,
-                   in ? 16 : 0);
-      }
-    };
-    auto compute = [&](int, const bf16* st) {
-      if (warp >= 7) return;
-      const bf16* ws = st + BM1 * BK;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        unsigned a[4];
-        ldsm_x4(a, st + swz(warp * 16 + lrow, kk + lcol));
-#pragma unroll
-        for (int nb = 0; nb < BN1 / 16; ++nb) {
-          if (n0 + nb * 16 >= nm) break;
-          unsigned bfr[4];
-          ldsm_x4(bfr, ws + swz(nb * 16 + brow, kk + bcol));
-          mma(acc[2 * nb], a, bfr[0], bfr[1]);
-          mma(acc[2 * nb + 1], a, bfr[2], bfr[3]);
+  // wgmma with both operands in shared memory.  Warpgroup wg takes halo rows
+  // [64*wg, 64*wg + 64) of the 128 (rows past the 100 hold stale data and
+  // their sums are dropped), BN1 mid channels a pass (wgmma n128; n64 or n32
+  // where no more are left).
+  if (warp == 8) {
+    if (lane == 0) {
+      int it = 0;
+      for (int n0 = 0; n0 < nm; n0 += BN1)
+        for (int s = 0; s < steps1; ++s, ++it) {
+          const int slot = it % BNS1;
+          if (it >= BNS1) mbar_wait(&empty1[slot], (it / BNS1 - 1) & 1);
+          bf16* st = ring + slot * BSTAGE1;
+          mbar_expect_tx(&full1[slot], (HP + BN1) * BK * (int)sizeof(bf16));
+          tma_load_4d(st, &y_map, &full1[slot], s * BK, tx0 - 1, ty0 - 1, b);
+          tma_load_2d(st + BM1 * BK, &w1_map, &full1[slot], s * BK, m_lo + n0);
         }
+      // conv2's first loads go out once conv1 is done with the ring
+      for (int j = max(0, it - BNS1); j < it; ++j)
+        mbar_wait(&empty1[j % BNS1], (j / BNS1) & 1);
+      for (int it2 = 0; it2 < BNS2 && it2 < passes2 * steps2; ++it2) load2(it2);
+    }
+    __syncwarp();
+  } else {
+    int it = 0;
+    for (int n0 = 0; n0 < nm; n0 += BN1) {
+      const int width = nm - n0 > 64 ? 128 : nm - n0 > 32 ? 64 : 32;  // uniform
+      float acc[BN1 / 2];
+#pragma unroll
+      for (int i = 0; i < BN1 / 2; ++i) acc[i] = 0.f;
+      for (int s = 0; s < steps1; ++s, ++it) {
+        const int slot = it % BNS1;
+        mbar_wait(&full1[slot], (it / BNS1) & 1);
+        const bf16* st = ring + slot * BSTAGE1;
+        const uint64_t da = wgmma_desc(st + wg * 64 * BK), db = wgmma_desc(st + BM1 * BK);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {
+          if (width == 128)
+            wgmma_ss_n128(acc, da + 2 * j, db + 2 * j);
+          else if (width == 64)
+            wgmma_ss_n64(*reinterpret_cast<float(*)[32]>(acc), da + 2 * j, db + 2 * j);
+          else
+            wgmma_ss_n32(*reinterpret_cast<float(*)[16]>(acc), da + 2 * j, db + 2 * j);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's group: free its slot
+        if (s > 0 && lane == 0) mbar_arrive(&empty1[(it - 1) % BNS1]);
       }
-    };
-    ring_pipeline<BNS, BNS - 1, BSTAGE1>(Cp / BK, ring, load, compute);
-    if (warp < 7) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty1[(it - 1) % BNS1]);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = warp * 16 + g + 8 * h;
-        if (p >= HP) continue;
-        const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      for (int i = 0; i < BN1 / 8; ++i)
 #pragma unroll
-        for (int ni = 0; ni < BN1 / 8; ++ni) {
-          const int n = n0 + ni * 8 + 2 * q;  // local mid channel (nm % 16 == 0)
-          if (n >= nm) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int p = wg * 64 + wq * 16 + g + 8 * h;
+          const int n = n0 + i * 8 + 2 * q;  // local mid channel (nm % 16 == 0)
+          if (p >= HP || n >= nm || i * 8 >= width) continue;
+          const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
           const int m = m_lo + n;
           // 0 outside the image (the 3x3's zero padding) and in padded channels
-          const float v0 = inside && m < Cmid ? leaky(acc[ni][2 * h] + __bfloat162float(b1[m])) : 0.f;
-          const float v1 =
-              inside && m + 1 < Cmid ? leaky(acc[ni][2 * h + 1] + __bfloat162float(b1[m + 1])) : 0.f;
+          const float v0 =
+              inside && m < Cmid ? leaky(acc[4 * i + 2 * h] + __bfloat162float(b1[m])) : 0.f;
+          const float v1 = inside && m + 1 < Cmid
+                               ? leaky(acc[4 * i + 2 * h + 1] + __bfloat162float(b1[m + 1]))
+                               : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(mid + p * ms + m) = __floats2bfloat162_rn(v0, v1);
         }
-      }
     }
   }
 
@@ -295,7 +502,7 @@ __global__ void __launch_bounds__(NT, 2) res_block_bf16_kernel(
     const int src = (rank + r) % cs, lo = src * MS, n = min(MS, Mpad - lo);
     if (n <= 0) continue;
     const bf16* peer = cluster.map_shared_rank(mid, src);
-    for (int i = tid; i < HP * (n / 8); i += NT) {
+    for (int i = tid; i < HP * (n / 8); i += BNT) {
       const int at = (i / (n / 8)) * ms + lo + (i % (n / 8)) * 8;
       *reinterpret_cast<int4*>(mid + at) = *reinterpret_cast<const int4*>(peer + at);
     }
@@ -305,80 +512,72 @@ __global__ void __launch_bounds__(NT, 2) res_block_bf16_kernel(
 
   // ---- conv2: [64 x 9*Mpad] @ [9*Mpad x co] from the halo window -----------
   // Step s is K [s*BK, (s+1)*BK) of the tap-major K = t * Mpad + m; each k16
-  // lies in one tap, whose A rows are the halo rows shifted by the tap.
-  {
-    constexpr int N2 = bf16_n2(NI);
-    const int wm = warp / 4, wn = warp % 4;  // warp row, warp column
-    int hrow[2];                             // halo row of this lane's A row, tap (0,0)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int p = wm * 32 + mi * 16 + lrow;
-      hrow[mi] = (p / TW) * HWIN + p % TW;
-    }
+  // lies in one tap, whose A rows are the halo rows shifted by the tap,
+  // gathered by ldmatrix into registers (a shared-memory descriptor cannot
+  // express the shift).  Warpgroup wg owns channels [c0 + wg*V, c0 +
+  // (wg+1)*V) of a pass, its warp wq pixels [16*wq, 16*wq + 16).  A step is
+  // one wgmma group of 4 k16; the previous step's group is waited for before
+  // its A registers are reloaded, and its slot is then handed back.
+  if (warp == 8) {
+    if (lane == 0)
+      for (int it = BNS2; it < passes2 * steps2; ++it) load2(it);
+  } else {
     const int K2 = 9 * Mpad;
-    const int co_begin = blockIdx.y * co_per_block;
-    const int co_end = min(C, co_begin + co_per_block);
-    for (int c0 = co_begin; c0 < co_end; c0 += N2) {
-      const bool active = c0 + wn * 8 * NI < co_end;
-      float acc[2][NI][4] = {};
-      auto load = [&](int s, bf16* st) {  // st: w2 [N2][BK]
+    const size_t img = (size_t)b * H * W * C;
+    const int lrow = lane % 16, lcol = (lane / 16) * 8;  // ldmatrix: row, column
+    const int px = wq * 16 + lrow;
+    const int hrow = (px / TW) * HWIN + px % TW;  // halo row of this lane's A row, tap (0,0)
+    unsigned a[BK / 16][4] = {};
+    int it = 0;
+    for (int c0 = co_begin; c0 < co_end; c0 += 2 * V) {
+      const bool active = c0 + wg * V < co_end;   // uniform in the warpgroup
+      float acc[V / 2];
 #pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int i = tid + j * NT;
-          const int r = i / (BK / 8), kk = (i % (BK / 8)) * 8;
-          const bool in = c0 + r < co_end;
-          cp_async16(st + swz(r, kk), in ? w2k + (size_t)(c0 + r) * K2p + s * BK + kk : w2k,
-                     in ? 16 : 0);
-        }
-      };
-      auto compute = [&](int s, const bf16* st) {
-        if (!active) return;
+      for (int i = 0; i < V / 2; ++i) acc[i] = 0.f;
+      for (int s = 0; s < steps2; ++s, ++it) {
+        const int slot = it % BNS2;
+        mbar_wait(&full2[slot], (it / BNS2) & 1);
+        wgmma_wait<0>();  // the previous step's group
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+        if (s > 0 && lane == 0) mbar_arrive(&empty2[(it - 1) % BNS2]);
+        if (!active) continue;
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) {
-          const int k = s * BK + j * 16;
-          if (k >= K2) break;
+          // K past 9 * Mpad (w2k's zero padding) takes any finite mid: the last k16's
+          const int k = min(s * BK + j * 16, K2 - 16);
           const int t = k / Mpad, m = k - t * Mpad;
-          const int toff = (t / 3) * HWIN + t % 3;
-          unsigned bfr[NI / 2][4];
-#pragma unroll
-          for (int nb = 0; nb < NI / 2; ++nb)
-            ldsm_x4(bfr[nb], st + swz(wn * 8 * NI + nb * 16 + brow, j * 16 + bcol));
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            unsigned a[4];
-            ldsm_x4(a, mid + (hrow[mi] + toff) * ms + m + lcol);
-#pragma unroll
-            for (int nb = 0; nb < NI / 2; ++nb) {
-              mma(acc[mi][2 * nb], a, bfr[nb][0], bfr[nb][1]);
-              mma(acc[mi][2 * nb + 1], a, bfr[nb][2], bfr[nb][3]);
-            }
-          }
+          ldsm_x4(a[j], mid + (hrow + (t / 3) * HWIN + t % 3) * ms + m + lcol);
         }
-      };
-      ring_pipeline<BNS, BNS - 1, bf16_stage2(NI)>(K2p / BK, ring, load, compute);
-      if (active) {
+        const uint64_t db = wgmma_desc(ring + slot * bf16_stage2(V) + wg * V * BK);
+        wgmma_fence();
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = wm * 32 + mi * 16 + g + 8 * h;
-            const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-            if (gy >= H || gx >= W) continue;
-            const size_t row = img + ((size_t)gy * W + gx) * C;
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni) {
-              const int co = c0 + wn * 8 * NI + ni * 8 + 2 * q;  // co_end is even
-              if (co >= co_end) continue;
-              // conv2's result rounds to bf16, then adds to y in bf16
-              const __nv_bfloat162 r = __floats2bfloat162_rn(
-                  leaky(acc[mi][ni][2 * h] + __bfloat162float(b2[co])),
-                  leaky(acc[mi][ni][2 * h + 1] + __bfloat162float(b2[co + 1])));
-              const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(y + row + co);
-              *reinterpret_cast<__nv_bfloat162*>(out + row + co) = __floats2bfloat162_rn(
-                  __low2float(yv) + __low2float(r), __high2float(yv) + __high2float(r));
-            }
-          }
+        for (int j = 0; j < BK / 16; ++j) wgmma_rs<V>(acc, a[j], db + 2 * j);
+        wgmma_commit();
       }
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
+      if (lane == 0) mbar_arrive(&empty2[(it - 1) % BNS2]);
+      if (!active) continue;
+#pragma unroll
+      for (int i = 0; i < V / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = wq * 16 + g + 8 * h;
+          const int gy = ty0 + p / TW, gx = tx0 + p % TW;
+          const int co = c0 + wg * V + i * 8 + 2 * q;  // co_end is even
+          if (gy >= H || gx >= W || co >= co_end) continue;
+          const size_t at = img + ((size_t)gy * W + gx) * C + co;
+          // conv2's result rounds to bf16, then adds to y in bf16
+          const __nv_bfloat162 r = __floats2bfloat162_rn(
+              leaky(acc[4 * i + 2 * h] + __bfloat162float(b2[co])),
+              leaky(acc[4 * i + 2 * h + 1] + __bfloat162float(b2[co + 1])));
+          const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(y + at);
+          *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
+              __low2float(yv) + __low2float(r), __high2float(yv) + __high2float(r));
+        }
     }
   }
   cluster_wait();  // no block exits while a peer may still read its mid
@@ -727,39 +926,42 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 //     13x13 at 416): measured on an H100 at batch 8, it beats the 32 x 16
 //     tile there, and loses where C is small (C = 64 at 208x208 would leave
 //     half of its 128 channels idle);
-//   bf16: NI = 4 (128 channels a pass) where C >= 128, else NI = 2, so that
-//     C = 64 keeps all 8 warps busy.
+//   bf16: V channels per warpgroup: 32 where C = 64 (both warpgroups busy),
+//     64 where C = 128, and where C >= 256 whichever of 128 and 64 costs less
+//     (128 on a tie: its 4-slot ring does not fit beside a 13x13 mid, 512
+//     channels wide, in shared memory).
 // Plans are cached by (device, dtype, shape): the occupancy queries and
 // cudaFuncSetAttribute cost host time, and run once per shape.
 struct Plan {
   int dev, bf16, B, H, W, C, Cmid;
-  int variant, cs, ms_chunk, co_per_block;
+  int variant, cs, ms_chunk, co_per_block;  // variant: the kernel's template argument
   size_t smem;
 };
 
 template <int NI>
 struct F32Kernel {
-  static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2;
+  static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2, THREADS = NT;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<NI>); }
   static size_t smem(int, int ms_chunk) {
     return ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
   }
 };
 
-template <int NI>
+template <int V>
 struct Bf16Kernel {
-  static constexpr int VARIANT = NI, N2 = bf16_n2(NI), MGRAN = BMGRAN, MSG = BMGRAN;
-  static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<NI>); }
-  static size_t smem(int Mpad, int) {  // + 1024: the ring's alignment
-    return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(NI) * sizeof(bf16);
+  static constexpr int VARIANT = V, N2 = 2 * V, MGRAN = BMGRAN, MSG = BMGRAN, THREADS = BNT;
+  static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V>); }
+  static size_t smem(int Mpad, int) {  // + 1024: the ring's alignment; then conv2's barriers
+    return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(V) * sizeof(bf16) +
+           2 * (BNS1 + BNS2) * sizeof(uint64_t);
   }
 };
 
-cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, void* stream,
+cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, void* stream,
                                   cudaLaunchAttribute (&attr)[1]) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -771,8 +973,10 @@ cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem, void* stream,
   return cfg;
 }
 
+// Add kernel K's best split to *best where it costs less than *best_cost
+// (-1: none yet).
 template <class K>
-int split(Plan* best) {
+int split(Plan* best, double* best_cost) {
   int max_smem = 0;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                          best->dev);
@@ -783,7 +987,6 @@ int split(Plan* best) {
   const int Mpad = ceil_div(best->Cmid, K::MGRAN) * K::MGRAN;
   const int tiles = ceil_div(best->H, TH) * ceil_div(best->W, TW);
   const int chunks = ceil_div(C, K::N2), kchunks = Mpad / K::MSG;
-  double best_cost = -1;
   for (int s = 1; s <= MAX_CLUSTER && s <= chunks && s <= kchunks; ++s) {
     const int per_block = ceil_div(chunks, s);
     if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
@@ -791,7 +994,8 @@ int split(Plan* best) {
     const size_t smem = K::smem(Mpad, ms_chunk);
     if (smem > (size_t)max_smem) continue;
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(dim3(tiles, s, B), smem, nullptr, attr);
+    const cudaLaunchConfig_t cfg =
+        cluster_config(dim3(tiles, s, B), K::THREADS, smem, nullptr, attr);
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
     if (e != cudaSuccess) return (int)e;
@@ -799,8 +1003,8 @@ int split(Plan* best) {
     const double waves = (double)(((long)tiles * B + clusters - 1) / clusters);
     const double cost = waves * ((double)HP * C * ms_chunk +
                                  64.0 * 9 * Mpad * per_block * K::N2);
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
+    if (*best_cost < 0 || cost < *best_cost) {
+      *best_cost = cost;
       best->variant = K::VARIANT;
       best->cs = s;
       best->ms_chunk = ms_chunk;
@@ -808,8 +1012,37 @@ int split(Plan* best) {
       best->smem = smem;
     }
   }
-  // Cmid too wide for the shared memory of MAX_CLUSTER blocks
-  return best_cost < 0 ? (int)cudaErrorInvalidConfiguration : 0;
+  return 0;
+}
+
+// A TMA descriptor of a bf16 tensor: `rank` dimensions (innermost first),
+// byte strides of dimensions 1.., boxes of `box`, 128-byte swizzled (the
+// layout wgmma_desc describes), out-of-bounds elements read as zeros.
+// cuTensorMapEncodeTiled comes from the driver through the runtime, so the
+// library links against nothing but the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box) {
+  static EncodeTiled encode = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  });
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 std::mutex plan_mutex;
@@ -833,12 +1066,19 @@ int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
     }
   }
   Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0};
+  double cost = -1;
   int rc;
-  if (bf16)
-    rc = C >= 128 ? split<Bf16Kernel<4>>(&plan) : split<Bf16Kernel<2>>(&plan);
+  if (!bf16)
+    rc = C >= 512 ? split<F32Kernel<4>>(&plan, &cost) : split<F32Kernel<2>>(&plan, &cost);
+  else if (C < 128)
+    rc = split<Bf16Kernel<32>>(&plan, &cost);
+  else if (C < 256)
+    rc = split<Bf16Kernel<64>>(&plan, &cost);
   else
-    rc = C >= 512 ? split<F32Kernel<4>>(&plan) : split<F32Kernel<2>>(&plan);
+    rc = split<Bf16Kernel<128>>(&plan, &cost);
   if (rc != 0) return rc;
+  // Cmid too wide for the shared memory of MAX_CLUSTER blocks
+  if (cost < 0) return (int)cudaErrorInvalidConfiguration;
   if (n_plans < (int)(sizeof(plans) / sizeof(plans[0]))) plans[n_plans++] = plan;
   *out = plan;
   return 0;
@@ -863,7 +1103,7 @@ int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
   const int tiles_w = ceil_div(W, TW);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
-                                                plan.smem, stream, attr);
+                                                NT, plan.smem, stream, attr);
   const cudaError_t le = cudaLaunchKernelEx(
       &cfg, plan.variant == 4 ? res_block_f32_kernel<4> : res_block_f32_kernel<2>,
       static_cast<const float*>(y), static_cast<const float*>(w1s),
@@ -878,18 +1118,34 @@ int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
                               const void* w2k, const void* b2, void* out, int B,
                               int H, int W, int C, int Cmid, void* stream) {
   Plan plan;
-  const int e = get_plan(1, B, H, W, C, Cmid, &plan);
+  int e = get_plan(1, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
   const int Mpad = ceil_div(Cmid, BMGRAN) * BMGRAN, Cp = ceil_div(C, BK) * BK;
   const int K2p = ceil_div(9 * Mpad, BK) * BK, tiles_w = ceil_div(W, TW);
+  // y [B][H][W][C]: BK channels of the 10 x 10 halo window; w1k [Mpad][Cp]:
+  // BK x BN1; w2k [C][K2p]: BK x 2V
+  const size_t row = (size_t)C * sizeof(bf16);
+  const cuuint64_t y_dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t y_strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t y_box[4] = {BK, HWIN, TH + 2, 1};
+  const cuuint64_t w1_dims[2] = {(cuuint64_t)Cp, (cuuint64_t)Mpad}, w1_strides[1] = {Cp * 2ull};
+  const cuuint64_t w2_dims[2] = {(cuuint64_t)K2p, (cuuint64_t)C}, w2_strides[1] = {K2p * 2ull};
+  const cuuint32_t w1_box[2] = {BK, BN1}, w2_box[2] = {BK, (cuuint32_t)(2 * plan.variant)};
+  CUtensorMap y_map, w1_map, w2_map;
+  if ((e = tensor_map(&y_map, y, 4, y_dims, y_strides, y_box)) != 0 ||
+      (e = tensor_map(&w1_map, w1k, 2, w1_dims, w1_strides, w1_box)) != 0 ||
+      (e = tensor_map(&w2_map, w2k, 2, w2_dims, w2_strides, w2_box)) != 0)
+    return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
-                                                plan.smem, stream, attr);
+                                                BNT, plan.smem, stream, attr);
+  const auto kernel = plan.variant == 128 ? res_block_bf16_kernel<128>
+                      : plan.variant == 64 ? res_block_bf16_kernel<64>
+                                           : res_block_bf16_kernel<32>;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, plan.variant == 4 ? res_block_bf16_kernel<4> : res_block_bf16_kernel<2>,
-      static_cast<const bf16*>(y), static_cast<const bf16*>(w1k),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2k),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W, C, Cmid, Mpad, Cp, K2p,
+      &cfg, kernel, y_map, w1_map, w2_map, static_cast<const bf16*>(y),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), static_cast<bf16*>(out), H,
+      W, C, Cmid, Mpad, Cp, K2p,
       plan.ms_chunk, tiles_w, plan.co_per_block);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();

@@ -516,8 +516,9 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
   // gathered by ldmatrix into registers (a shared-memory descriptor cannot
   // express the shift).  Warpgroup wg owns channels [c0 + wg*V, c0 +
   // (wg+1)*V) of a pass, its warp wq pixels [16*wq, 16*wq + 16).  A step is
-  // one wgmma group of 4 k16; the previous step's group is waited for before
-  // its A registers are reloaded, and its slot is then handed back.
+  // one wgmma group of 4 k16.  The A registers are double-buffered: while
+  // step s multiplies, step s - 1's group is waited for (its slot handed
+  // back) and step s + 1's A is gathered into the other buffer.
   if (warp == 8) {
     if (lane == 0)
       for (int it = BNS2; it < passes2 * steps2; ++it) load2(it);
@@ -527,39 +528,56 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
     const int lrow = lane % 16, lcol = (lane / 16) * 8;  // ldmatrix: row, column
     const int px = wq * 16 + lrow;
     const int hrow = (px / TW) * HWIN + px % TW;  // halo row of this lane's A row, tap (0,0)
-    unsigned a[BK / 16][4] = {};
-    int it = 0;
-    for (int c0 = co_begin; c0 < co_end; c0 += 2 * V) {
+    unsigned a0[BK / 16][4] = {}, a1[BK / 16][4] = {};
+    // step s's A fragments into `a` (K past 9 * Mpad, w2k's zero padding,
+    // takes any finite mid: the last k16's)
+    auto gather = [&](int s, unsigned (&a)[BK / 16][4]) {
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        const int k = min(s * BK + j * 16, K2 - 16);
+        const int t = k / Mpad, m = k - t * Mpad;
+        ldsm_x4(a[j], mid + (hrow + (t / 3) * HWIN + t % 3) * ms + m + lcol);
+      }
+    };
+    int it = 0;  // ring iteration of step 0 of this pass
+    for (int c0 = co_begin; c0 < co_end; c0 += 2 * V, it += steps2) {
       const bool active = c0 + wg * V < co_end;   // uniform in the warpgroup
       float acc[V / 2];
 #pragma unroll
       for (int i = 0; i < V / 2; ++i) acc[i] = 0.f;
-      for (int s = 0; s < steps2; ++s, ++it) {
-        const int slot = it % BNS2;
-        mbar_wait(&full2[slot], (it / BNS2) & 1);
-        wgmma_wait<0>();  // the previous step's group
+      // step s: multiply `cur` (gathered), then gather step s + 1 into `next`
+      auto step = [&](int s, unsigned (&cur)[BK / 16][4], unsigned (&next)[BK / 16][4]) {
+        if (active) {
+          const uint64_t db =
+              wgmma_desc(ring + (it + s) % BNS2 * bf16_stage2(V) + wg * V * BK);
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
-        if (s > 0 && lane == 0) mbar_arrive(&empty2[(it - 1) % BNS2]);
-        if (!active) continue;
+          for (int j = 0; j < BK / 16; ++j) wgmma_rs<V>(acc, cur[j], db + 2 * j);
+          wgmma_commit();
+          wgmma_wait<1>();  // step s - 1's group: its A buffer (`next`) and slot are free
 #pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          // K past 9 * Mpad (w2k's zero padding) takes any finite mid: the last k16's
-          const int k = min(s * BK + j * 16, K2 - 16);
-          const int t = k / Mpad, m = k - t * Mpad;
-          ldsm_x4(a[j], mid + (hrow + (t / 3) * HWIN + t % 3) * ms + m + lcol);
+          for (int j = 0; j < BK / 16; ++j) fence_regs(next[j]);
         }
-        const uint64_t db = wgmma_desc(ring + slot * bf16_stage2(V) + wg * V * BK);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) wgmma_rs<V>(acc, a[j], db + 2 * j);
-        wgmma_commit();
+        if (s > 0 && lane == 0) mbar_arrive(&empty2[(it + s - 1) % BNS2]);
+        if (s + 1 < steps2) {
+          mbar_wait(&full2[(it + s + 1) % BNS2], (it + s + 1) / BNS2 & 1);
+          if (active) gather(s + 1, next);
+        }
+      };
+      mbar_wait(&full2[it % BNS2], it / BNS2 & 1);
+      if (active) gather(0, a0);
+      for (int s = 0; s < steps2; s += 2) {
+        step(s, a0, a1);
+        if (s + 1 < steps2) step(s + 1, a1, a0);
       }
       wgmma_wait<0>();
       fence_regs(acc);
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) fence_regs(a[j]);
-      if (lane == 0) mbar_arrive(&empty2[(it - 1) % BNS2]);
+      for (int j = 0; j < BK / 16; ++j) {
+        fence_regs(a0[j]);
+        fence_regs(a1[j]);
+      }
+      if (lane == 0) mbar_arrive(&empty2[(it + steps2 - 1) % BNS2]);
       if (!active) continue;
 #pragma unroll
       for (int i = 0; i < V / 8; ++i)

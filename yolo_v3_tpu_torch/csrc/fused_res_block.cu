@@ -387,6 +387,11 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
   uint64_t* empty1 = full1 + BNS1;
   uint64_t* full2 = empty1 + BNS1;
   uint64_t* empty2 = full2 + BNS2;
+  float* b1f = reinterpret_cast<float*>(empty2 + BNS2);  // [Mpad]: b1, 0 past Cmid
+  float* b2f = b1f + Mpad;                                // [C]
+  for (int i = threadIdx.x; i < Mpad + C; i += BNT)
+    b1f[i] = i < Cmid ? __bfloat162float(b1[i])
+                      : i >= Mpad ? __bfloat162float(b2[i - Mpad]) : 0.f;
   if (threadIdx.x == 0) {
     for (int i = 0; i < BNS1; ++i) {
       mbar_init(&full1[i], 1);
@@ -487,9 +492,9 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
           const int m = m_lo + n;
           // 0 outside the image (the 3x3's zero padding) and in padded channels
           const float v0 =
-              inside && m < Cmid ? leaky(acc[4 * i + 2 * h] + __bfloat162float(b1[m])) : 0.f;
+              inside && m < Cmid ? leaky(acc[4 * i + 2 * h] + b1f[m]) : 0.f;
           const float v1 = inside && m + 1 < Cmid
-                               ? leaky(acc[4 * i + 2 * h + 1] + __bfloat162float(b1[m + 1]))
+                               ? leaky(acc[4 * i + 2 * h + 1] + b1f[m + 1])
                                : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(mid + p * ms + m) = __floats2bfloat162_rn(v0, v1);
         }
@@ -497,7 +502,10 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
   }
 
   // ---- the cluster's mid: copy the peers' slices (distributed shared memory)
-  cluster.sync();  // every block's slice is complete and visible to its peers
+  if (cs > 1)
+    cluster.sync();  // every block's slice is complete and visible to its peers
+  else
+    __syncthreads();
   for (int r = 1; r < cs; ++r) {
     const int src = (rank + r) % cs, lo = src * MS, n = min(MS, Mpad - lo);
     if (n <= 0) continue;
@@ -507,7 +515,7 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
       *reinterpret_cast<int4*>(mid + at) = *reinterpret_cast<const int4*>(peer + at);
     }
   }
-  cluster_arrive();  // done reading the peers; waited for before exit
+  if (cs > 1) cluster_arrive();  // done reading the peers; waited for before exit
   __syncthreads();
 
   // ---- conv2: [64 x 9*Mpad] @ [9*Mpad x co] from the halo window -----------
@@ -545,6 +553,19 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
       float acc[V / 2];
 #pragma unroll
       for (int i = 0; i < V / 2; ++i) acc[i] = 0.f;
+      // the residual y of this thread's outputs, loaded while the pass runs
+      __nv_bfloat162 yres[V / 8][2];
+#pragma unroll
+      for (int i = 0; i < V / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = wq * 16 + g + 8 * h;
+          const int gy = ty0 + p / TW, gx = tx0 + p % TW;
+          const int co = c0 + wg * V + i * 8 + 2 * q;
+          if (active && gy < H && gx < W && co < co_end)
+            yres[i][h] = *reinterpret_cast<const __nv_bfloat162*>(
+                y + img + ((size_t)gy * W + gx) * C + co);
+        }
       // step s: multiply `cur` (gathered), then gather step s + 1 into `next`
       auto step = [&](int s, unsigned (&cur)[BK / 16][4], unsigned (&next)[BK / 16][4]) {
         if (active) {
@@ -589,16 +610,15 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
           if (gy >= H || gx >= W || co >= co_end) continue;
           const size_t at = img + ((size_t)gy * W + gx) * C + co;
           // conv2's result rounds to bf16, then adds to y in bf16
-          const __nv_bfloat162 r = __floats2bfloat162_rn(
-              leaky(acc[4 * i + 2 * h] + __bfloat162float(b2[co])),
-              leaky(acc[4 * i + 2 * h + 1] + __bfloat162float(b2[co + 1])));
-          const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(y + at);
+          const __nv_bfloat162 r = __floats2bfloat162_rn(leaky(acc[4 * i + 2 * h] + b2f[co]),
+                                                         leaky(acc[4 * i + 2 * h + 1] + b2f[co + 1]));
+          const __nv_bfloat162 yv = yres[i][h];
           *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
               __low2float(yv) + __low2float(r), __high2float(yv) + __high2float(r));
         }
     }
   }
-  cluster_wait();  // no block exits while a peer may still read its mid
+  if (cs > 1) cluster_wait();  // no block exits while a peer may still read its mid
 }
 
 // ---------------------------------------------------------------------------
@@ -960,7 +980,7 @@ template <int NI>
 struct F32Kernel {
   static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2, THREADS = NT;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<NI>); }
-  static size_t smem(int, int ms_chunk) {
+  static size_t smem(int, int, int ms_chunk) {
     return ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
   }
 };
@@ -969,9 +989,10 @@ template <int V>
 struct Bf16Kernel {
   static constexpr int VARIANT = V, N2 = 2 * V, MGRAN = BMGRAN, MSG = BMGRAN, THREADS = BNT;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V>); }
-  static size_t smem(int Mpad, int) {  // + 1024: the ring's alignment; then conv2's barriers
+  // + 1024: the ring's alignment; then the barriers and the biases in fp32
+  static size_t smem(int C, int Mpad, int) {
     return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(V) * sizeof(bf16) +
-           2 * (BNS1 + BNS2) * sizeof(uint64_t);
+           2 * (BNS1 + BNS2) * sizeof(uint64_t) + (size_t)(Mpad + C) * sizeof(float);
   }
 };
 
@@ -1009,7 +1030,7 @@ int split(Plan* best, double* best_cost) {
     const int per_block = ceil_div(chunks, s);
     if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
     const int ms_chunk = ceil_div(kchunks, s) * K::MSG;
-    const size_t smem = K::smem(Mpad, ms_chunk);
+    const size_t smem = K::smem(C, Mpad, ms_chunk);
     if (smem > (size_t)max_smem) continue;
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg =

@@ -972,13 +972,14 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // cudaFuncSetAttribute cost host time, and run once per shape.
 struct Plan {
   int dev, bf16, B, H, W, C, Cmid;
-  int variant, cs, ms_chunk, co_per_block;  // variant: the kernel's template argument
+  int variant, splits, cs, ms_chunk, co_per_block;  // variant: the kernel's template argument
   size_t smem;
 };
 
 template <int NI>
 struct F32Kernel {
   static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2, THREADS = NT;
+  static constexpr bool REPLICATE = false;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<NI>); }
   static size_t smem(int, int, int ms_chunk) {
     return ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
@@ -988,6 +989,7 @@ struct F32Kernel {
 template <int V>
 struct Bf16Kernel {
   static constexpr int VARIANT = V, N2 = 2 * V, MGRAN = BMGRAN, MSG = BMGRAN, THREADS = BNT;
+  static constexpr bool REPLICATE = true;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V>); }
   // + 1024: the ring's alignment; then the barriers and the biases in fp32
   static size_t smem(int C, int Mpad, int) {
@@ -996,7 +998,7 @@ struct Bf16Kernel {
   }
 };
 
-cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, void* stream,
+cudaLaunchConfig_t cluster_config(dim3 grid, int cs, int threads, size_t smem, void* stream,
                                   cudaLaunchAttribute (&attr)[1]) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -1005,7 +1007,7 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, void* str
   cfg.stream = static_cast<cudaStream_t>(stream);
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.y = cs;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1026,29 +1028,34 @@ int split(Plan* best, double* best_cost) {
   const int Mpad = ceil_div(best->Cmid, K::MGRAN) * K::MGRAN;
   const int tiles = ceil_div(best->H, TH) * ceil_div(best->W, TW);
   const int chunks = ceil_div(C, K::N2), kchunks = Mpad / K::MSG;
-  for (int s = 1; s <= MAX_CLUSTER && s <= chunks && s <= kchunks; ++s) {
+  for (int s = 1; s <= MAX_CLUSTER && s <= chunks; ++s) {
     const int per_block = ceil_div(chunks, s);
     if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
-    const int ms_chunk = ceil_div(kchunks, s) * K::MSG;
-    const size_t smem = K::smem(C, Mpad, ms_chunk);
-    if (smem > (size_t)max_smem) continue;
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg =
-        cluster_config(dim3(tiles, s, B), K::THREADS, smem, nullptr, attr);
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (clusters < 1) continue;
-    const double waves = (double)(((long)tiles * B + clusters - 1) / clusters);
-    const double cost = waves * ((double)HP * C * ms_chunk +
-                                 64.0 * 9 * Mpad * per_block * K::N2);
-    if (*best_cost < 0 || cost < *best_cost) {
-      *best_cost = cost;
-      best->variant = K::VARIANT;
-      best->cs = s;
-      best->ms_chunk = ms_chunk;
-      best->co_per_block = per_block * K::N2;
-      best->smem = smem;
+    for (int cs = K::REPLICATE ? 1 : s; cs <= s && cs <= kchunks; ++cs) {
+      if (s % cs != 0) continue;
+      const int ms_chunk = ceil_div(kchunks, cs) * K::MSG;
+      const size_t smem = K::smem(C, Mpad, ms_chunk);
+      if (smem > (size_t)max_smem) continue;
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg =
+          cluster_config(dim3(tiles, s, B), cs, K::THREADS, smem, nullptr, attr);
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
+      if (e != cudaSuccess) return (int)e;
+      if (clusters < 1) continue;
+      const long all = (long)tiles * B * (s / cs);
+      const double waves = (double)((all + clusters - 1) / clusters);
+      const double cost = waves * ((double)HP * C * ms_chunk +
+                                   64.0 * 9 * Mpad * per_block * K::N2);
+      if (*best_cost < 0 || cost < *best_cost) {
+        *best_cost = cost;
+        best->variant = K::VARIANT;
+        best->splits = s;
+        best->cs = cs;
+        best->ms_chunk = ms_chunk;
+        best->co_per_block = per_block * K::N2;
+        best->smem = smem;
+      }
     }
   }
   return 0;
@@ -1104,7 +1111,7 @@ int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
       return 0;
     }
   }
-  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0};
+  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0};
   double cost = -1;
   int rc;
   if (!bf16)
@@ -1141,8 +1148,8 @@ int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
   const int Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN, Cp = ceil_div(C, FK1) * FK1;
   const int tiles_w = ceil_div(W, TW);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
-                                                NT, plan.smem, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(ceil_div(H, TH) * tiles_w, plan.splits, B), plan.cs, NT, plan.smem, stream, attr);
   const cudaError_t le = cudaLaunchKernelEx(
       &cfg, plan.variant == 4 ? res_block_f32_kernel<4> : res_block_f32_kernel<2>,
       static_cast<const float*>(y), static_cast<const float*>(w1s),
@@ -1176,8 +1183,8 @@ int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
       (e = tensor_map(&w2_map, w2k, 2, w2_dims, w2_strides, w2_box)) != 0)
     return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(dim3(ceil_div(H, TH) * tiles_w, plan.cs, B),
-                                                BNT, plan.smem, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(ceil_div(H, TH) * tiles_w, plan.splits, B), plan.cs, BNT, plan.smem, stream, attr);
   const auto kernel = plan.variant == 128 ? res_block_bf16_kernel<128>
                       : plan.variant == 64 ? res_block_bf16_kernel<64>
                                            : res_block_bf16_kernel<32>;

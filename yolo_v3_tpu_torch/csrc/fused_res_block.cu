@@ -33,15 +33,30 @@
 // touches device memory, y is read once for conv1 (plus a 1-pixel halo) and
 // once for the residual, and out is written once: the block's traffic is the
 // 2 tensors the fused op must move.  Both convs run on tensor cores: conv1 as
-// a [112 halo pixels x C] @ [C x Cmid] GEMM, conv2 as 9 tap GEMMs whose A
+// a [halo pixels x C] @ [C x Cmid] GEMM, conv2 as 9 tap GEMMs whose A
 // rows are gathered from the shifted halo window by address, so the 3x3
 // needs no im2col copy.
 //
-// bf16 (mma.sync m16n8k16, fp32 accumulate): y and weight rows are staged
-// with double-buffered cp.async.  Where the spatial grid is small against the
-// card (stage 4 at batch 8), the output channels are split over several
-// blocks of the same tile, which recompute conv1 rather than leave SMs idle;
-// the host picks the split that minimises waves x per-block work.
+// bf16 (wgmma, fp32 accumulate): one producer warp issues every load by TMA
+// (the y halo window as one 4-D box whose out-of-image pixels read as zeros;
+// w1 and w2 as 2-D boxes of the host's K-major copies), into rings of
+// 128-byte-swizzled slots with an mbarrier pair each, while two consumer
+// warpgroups run wgmma m64nNk16: conv1 with both operands in shared memory
+// (the 100 halo rows padded to 2 x m64), conv2 with A in registers, gathered
+// by ldmatrix from the shifted halo rows of mid (a shared-memory descriptor
+// cannot express that shift; each warp's wgmma A fragment is the m16n8k16
+// one) and double-buffered so that the next step's gather overlaps the
+// running product.  conv2 gives each warpgroup V = 32, 64 or 128 output
+// channels by C, so C = 64 keeps both busy.  Where the grid is small the
+// tile's channels are split like fp32's below, conv1 sliced over a cluster
+// of up to 8 blocks; each block copies its peers' mid slices into its own
+// shared memory once (distributed shared memory), and at 13x13 the cluster
+// is repeated over more blocks of the same tile, each recomputing the
+// cluster's conv1, where SMs would otherwise idle.  What bounds it now
+// (PERF.md): the rate at which conv2's wgmma loop issues (well under the
+// card's bf16 peak, and little faster with its weight loads removed), then
+// per-block latencies (TMA, barriers, the epilogue) where blocks are short
+// (208x208, 104x104).
 //
 // fp32 (mma.sync m16n8k8 TF32, 3xTF32): one TF32 product keeps 10 mantissa
 // bits and would miss fp32's results by ~5e-4 at K = 4608, so every operand
@@ -88,57 +103,11 @@ constexpr float LEAKY = 0.1f;
 __device__ __forceinline__ float leaky(float x) { return x > 0.f ? x : LEAKY * x; }
 
 // ---------------------------------------------------------------------------
-// Shared: tensor-core fragments, cp.async, the pipeline ring
+// Shared
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most `pending` committed groups are still in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
-}
-
-// Run `steps` steps through an NS-slot ring of SLOT elements: load(s, slot)
-// issues step s's cp.async copies, compute(s, slot) consumes them.  Loads run
-// LEAD steps ahead, into the slot of step s + LEAD - NS; one barrier per
-// step.  LEAD = NS - 1 where compute is done with its slot when it returns.
-// Returns with the ring idle.
-template <int NS, int LEAD, int SLOT, typename T, typename Load, typename Compute>
-__device__ __forceinline__ void ring_pipeline(int steps, T* ring, Load load, Compute compute) {
-  static_assert(LEAD >= 1 && LEAD < NS, "ring lead");
-#pragma unroll
-  for (int s = 0; s < LEAD; ++s) {
-    if (s < steps) load(s, ring + s * SLOT);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<LEAD - 1>();  // step s has landed
-    __syncthreads();            // ... for every thread; slot of step s + LEAD - NS is free
-    const int next = s + LEAD;
-    if (next < steps) load(next, ring + (next % NS) * SLOT);
-    cp_async_commit();
-    compute(s, ring + (s % NS) * SLOT);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // Split barrier over the thread-block cluster: arrive (release this block's
@@ -176,6 +145,12 @@ __host__ __device__ constexpr int bf16_region(int V) {
 // swizzle is a function of the shared-memory address)
 __host__ __device__ constexpr size_t bf16_mid_bytes(int Mpad) {
   return ((size_t)HP * (Mpad + SKEW) * 2 + 1023) / 1024 * 1024;
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
 // wgmma's descriptor of a K-major operand as TMA stages it: rows of BK = 64
@@ -720,6 +695,21 @@ __device__ __forceinline__ void store_split8(float* dst, const float4& lo4, cons
   }
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` committed groups are still in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
 // Stage the first n (any int) of 4 floats from global `src` into shared
 // `dst`, zero-filling the rest: one cp.async where the run is 16-byte
 // aligned, else element by element.
@@ -730,6 +720,29 @@ __device__ __forceinline__ void stage4(float* dst, const float* src, int n, bool
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[i] = i < n ? src[i] : 0.f;
   }
+}
+
+// Run `steps` steps through an NS-slot ring of SLOT floats: load(s, slot)
+// issues step s's cp.async copies, compute(s, slot) consumes them.  Loads
+// run NS - 1 steps ahead; one barrier per step.  Returns with the ring idle.
+template <int NS, int SLOT, typename Load, typename Compute>
+__device__ __forceinline__ void ring_pipeline(int steps, float* ring, Load load,
+                                              Compute compute) {
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < steps) load(s, ring + s * SLOT);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<NS - 2>();  // step s has landed
+    __syncthreads();          // ... for every thread; slot (s - 1) is free
+    const int next = s + NS - 1;
+    if (next < steps) load(next, ring + (next % NS) * SLOT);
+    cp_async_commit();
+    compute(s, ring + (s % NS) * SLOT);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 // y, out: [B, H, W, C]; b1: [Cmid]; b2: [C].  The weights come split into
@@ -809,7 +822,7 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
         }
         add_partials(acc, part);
       };
-      ring_pipeline<FNS1, FNS1 - 1, FSTAGE1>((C + FK1 - 1) / FK1, ring, load, compute);
+      ring_pipeline<FNS1, FSTAGE1>((C + FK1 - 1) / FK1, ring, load, compute);
       if (warp < 7) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -922,7 +935,7 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
         add_partials(acc, part);
       };
       fetch(0);
-      ring_pipeline<FNS2, FNS2 - 1, FSTAGE2>(nchunks * 9, ring, load, compute);
+      ring_pipeline<FNS2, FSTAGE2>(nchunks * 9, ring, load, compute);
       if (active) {
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
@@ -1014,10 +1027,8 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int cs, int threads, size_t smem, v
   return cfg;
 }
 
-// Add kernel K's best split to *best where it costs less than *best_cost
-// (-1: none yet).
 template <class K>
-int split(Plan* best, double* best_cost) {
+int split(Plan* best) {
   int max_smem = 0;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                          best->dev);
@@ -1028,6 +1039,7 @@ int split(Plan* best, double* best_cost) {
   const int Mpad = ceil_div(best->Cmid, K::MGRAN) * K::MGRAN;
   const int tiles = ceil_div(best->H, TH) * ceil_div(best->W, TW);
   const int chunks = ceil_div(C, K::N2), kchunks = Mpad / K::MSG;
+  double best_cost = -1;
   for (int s = 1; s <= MAX_CLUSTER && s <= chunks; ++s) {
     const int per_block = ceil_div(chunks, s);
     if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
@@ -1047,8 +1059,8 @@ int split(Plan* best, double* best_cost) {
       const double waves = (double)((all + clusters - 1) / clusters);
       const double cost = waves * ((double)HP * C * ms_chunk +
                                    64.0 * 9 * Mpad * per_block * K::N2);
-      if (*best_cost < 0 || cost < *best_cost) {
-        *best_cost = cost;
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
         best->variant = K::VARIANT;
         best->splits = s;
         best->cs = cs;
@@ -1058,7 +1070,8 @@ int split(Plan* best, double* best_cost) {
       }
     }
   }
-  return 0;
+  // Cmid too wide for the shared memory of MAX_CLUSTER blocks
+  return best_cost < 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 // A TMA descriptor of a bf16 tensor: `rank` dimensions (innermost first),
@@ -1112,19 +1125,13 @@ int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
     }
   }
   Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0};
-  double cost = -1;
   int rc;
   if (!bf16)
-    rc = C >= 512 ? split<F32Kernel<4>>(&plan, &cost) : split<F32Kernel<2>>(&plan, &cost);
-  else if (C < 128)
-    rc = split<Bf16Kernel<32>>(&plan, &cost);
-  else if (C < 256)
-    rc = split<Bf16Kernel<64>>(&plan, &cost);
+    rc = C >= 512 ? split<F32Kernel<4>>(&plan) : split<F32Kernel<2>>(&plan);
   else
-    rc = split<Bf16Kernel<128>>(&plan, &cost);
+    rc = C < 128 ? split<Bf16Kernel<32>>(&plan)
+         : C < 256 ? split<Bf16Kernel<64>>(&plan) : split<Bf16Kernel<128>>(&plan);
   if (rc != 0) return rc;
-  // Cmid too wide for the shared memory of MAX_CLUSTER blocks
-  if (cost < 0) return (int)cudaErrorInvalidConfiguration;
   if (n_plans < (int)(sizeof(plans) / sizeof(plans[0]))) plans[n_plans++] = plan;
   *out = plan;
   return 0;

@@ -193,7 +193,7 @@ def cluster_size(b: int, h: int, w: int, c: int, cmid: int,
                  dtype: torch.dtype = torch.float32) -> int:
     """The thread-block cluster the ``dtype`` kernel launches for [b, h, w, c]
     with ``cmid`` mid channels on the current CUDA device: the number of
-    blocks that split one tile's channels (1: none)."""
+    blocks of one tile that split its conv1 between them (1: none)."""
     fn, err_str = _kernel("cluster")
     cs = fn(int(dtype == torch.bfloat16), b, h, w, c, cmid)
     if cs < 0:

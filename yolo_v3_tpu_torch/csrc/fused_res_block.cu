@@ -130,7 +130,7 @@ constexpr int BK = 64;       // K per pipeline step: one 128-byte row of a stage
 constexpr int BM1 = 128;     // conv1 rows: the 100 halo pixels padded to 2 x m64
 constexpr int BN1 = 128;     // mid channels per conv1 pass
 constexpr int BMGRAN = 16;   // mid channels are padded to this (weights, shared memory)
-constexpr int BNS1 = 3;      // depth of conv1's cp.async ring
+constexpr int BNS1 = 3;      // depth of conv1's TMA ring
 constexpr int BNS2 = 3;      // depth of conv2's TMA ring
 constexpr int BNT = 288;     // threads: 2 consumer warpgroups and conv2's producer warp
 constexpr int BSTAGE1 = (BM1 + BN1) * BK;  // a conv1 step: y rows, then w1 rows
@@ -380,7 +380,10 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
   }
   __syncthreads();
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the warp index as a warp-uniform value (a shuffle), so that the compiler
+  // sees the wgmma paths below as convergent: wgmma in a path it thinks
+  // divergent is serialized (each waits for the one before)
+  const int tid = threadIdx.x, lane = tid % 32, warp = __shfl_sync(0xffffffff, tid / 32, 0);
   const int wg = warp / 4, wq = warp % 4;               // warpgroup, its warp
   const int g = lane / 4, q = lane % 4;                 // accumulator row, column pair
   const int b = blockIdx.z;
@@ -967,20 +970,21 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Each tile's output channels (and, with them, its mid channels) are split
-// over a cluster of cs blocks: the planner picks the cs that minimises (waves
-// of clusters on the card, from cudaOccupancyMaxActiveClusters) x (one
-// block's MACs: conv1's share HP*C*MS plus conv2 on co_per_block channels).
-// Small grids (13x13, 26x26 at batch 8) cluster; grids that already fill the
-// card do not.  The variant (the kernel's template argument) is picked by C:
+// Each tile's output channels are split over `splits` blocks, and its mid
+// channels (conv1) over clusters of cs of them (fp32: cs = splits; bf16 may
+// repeat a cluster, each recomputing its conv1, where SMs would otherwise
+// idle): the planner picks the pair that minimises (waves of clusters on the
+// card, from cudaOccupancyMaxActiveClusters) x (one block's MACs: conv1's
+// share HP*C*MS plus conv2 on co_per_block channels).  Small grids (13x13,
+// 26x26 at batch 8) split; grids that already fill the card do not.  The
+// variant (the kernel's template argument) is picked by C:
 //   fp32: conv2's warp tile is 32 x 32 (NI = 4) where C >= 512 (26x26 and
 //     13x13 at 416): measured on an H100 at batch 8, it beats the 32 x 16
 //     tile there, and loses where C is small (C = 64 at 208x208 would leave
 //     half of its 128 channels idle);
 //   bf16: V channels per warpgroup: 32 where C = 64 (both warpgroups busy),
-//     64 where C = 128, and where C >= 256 whichever of 128 and 64 costs less
-//     (128 on a tie: its 4-slot ring does not fit beside a 13x13 mid, 512
-//     channels wide, in shared memory).
+//     64 where C = 128, 128 above (measured on an H100 at batch 8: 64 lost
+//     to 128 at 13x13, 26x26 and 52x52, and 128 or 32 to 64 at 104x104).
 // Plans are cached by (device, dtype, shape): the occupancy queries and
 // cudaFuncSetAttribute cost host time, and run once per shape.
 struct Plan {

@@ -52,11 +52,12 @@
 // of up to 8 blocks; each block copies its peers' mid slices into its own
 // shared memory once (distributed shared memory), and at 13x13 the cluster
 // is repeated over more blocks of the same tile, each recomputing the
-// cluster's conv1, where SMs would otherwise idle.  What bounds it now
-// (PERF.md): the rate at which conv2's wgmma loop issues (well under the
-// card's bf16 peak, and little faster with its weight loads removed), then
-// per-block latencies (TMA, barriers, the epilogue) where blocks are short
-// (208x208, 104x104).
+// cluster's conv1, where SMs would otherwise idle.  ptxas serializes every
+// wgmma of a kernel (each waits for the one before) when it thinks one sits
+// on a divergent path, so the warp index that selects the paths is taken
+// as a warp-uniform value.  What bounds it now (PERF.md): the wgmma loops'
+// issue rate, about half the card's bf16 peak, and per-block latencies
+// (TMA, barriers, the epilogue) where blocks are short (208x208, 104x104).
 //
 // fp32 (mma.sync m16n8k8 TF32, 3xTF32): one TF32 product keeps 10 mantissa
 // bits and would miss fp32's results by ~5e-4 at K = 4608, so every operand

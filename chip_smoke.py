@@ -11,9 +11,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    card's bound for the same work and, where one PyTorch call computes the
    same function, that call's time: the fused residual-block kernel at the 5
    residual-block shapes of YOLOv3-416 at batch 8 in fp32 and bf16 (beside
-   cuDNN convs in the working dtype, TF32 off); the int8 kernels
-   (conv1x1_p2d, conv3x3_p2d, their composition res_block_p2d, fused_entry)
-   bit-equal at every shape the int8 forward launches them at batch 8;
+   cuDNN convs in the working dtype, TF32 off); the bf16 padded-2D kernels
+   (conv1x1_p2d, conv3x3_p2d) at every head and up shape of the bf16
+   forward, and their composition res_block_p2d at 26^2, within rtol = atol
+   = 2e-2 (beside the cuDNN bf16 chain, channels-last conv + bias + leaky);
+   the int8 kernels (conv1x1_p2d, conv3x3_p2d, their composition
+   res_block_p2d, fused_entry) bit-equal at every shape the int8 forward
+   launches them at batch 8;
 4. main paths: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
    ``torch.Generator`` seed 0, written as darknet ``.weights`` and loaded
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
@@ -23,7 +27,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. timing: e2e ``detect`` images/sec at batch 8, forward ms and the
    preprocess / forward / postprocess split, per precision.
 
-The line before the last is the kernel summary as JSON; the last line is
+TF32 is turned off only around this script's own plain references and
+cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
+the fp32 forward's own switch is what the fp32 gates see.  The line before
+the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA; imports no JAX.
 """
 
@@ -63,6 +70,19 @@ INT8_CONVS = {
     (1, 52, 256, 255, False, "bf16"): 1,
     (1, 13, 512, 256, False, "i8"): 1, (1, 26, 256, 128, False, "i8"): 1,
 }
+# Every padded-2D conv the bf16 forward launches at 416 (its heads and up
+# convs): (taps, grid H = W, C, N, leaky) -> launches per forward.
+BF16_CONVS = {
+    (1, 13, 1024, 512, True): 3, (9, 13, 512, 1024, True): 3,
+    (1, 13, 1024, 255, False): 1, (1, 13, 512, 256, True): 1,
+    (1, 26, 768, 256, True): 1, (1, 26, 512, 256, True): 2,
+    (9, 26, 256, 512, True): 3, (1, 26, 512, 255, False): 1,
+    (1, 26, 256, 128, True): 1,
+    (1, 52, 384, 128, True): 1, (1, 52, 256, 128, True): 2,
+    (9, 52, 128, 256, True): 3, (1, 52, 256, 255, False): 1,
+}
+BF16_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 14, "conv3x3_p2d": 9}
+P2D_BF16_TOL = dict(rtol=2e-2, atol=2e-2)     # the JAX suite's bf16 tolerance
 # residual blocks of the int8 forward: (grid, C) -> blocks (stage 0 is in
 # the entry)
 INT8_RES = {(104, 128): 2, (52, 256): 8, (26, 512): 8, (13, 1024): 4}
@@ -204,6 +224,7 @@ def check_kernel(card):
     device ms summed over one forward's 23 blocks."""
     from yolo_v3_tpu_torch.ops.fused_res_block import (
         cluster_size, fused_res_block, fused_res_block_ref)
+    from yolo_v3_tpu_torch.utils.precision import full_fp32
 
     summary = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -217,9 +238,10 @@ def check_kernel(card):
             torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
             e = (got.float() - want.float()).abs().max().item()
             k_ms = device_ms(lambda: fused_res_block(*args))
-            p_ms = device_ms(lambda: fused_res_block_ref(*args))
+            p_ms = device_ms(lambda: fused_res_block_ref(*args))   # TF32 off inside
             # fp32: the plain version is the cuDNN fp32 chain itself
-            l_ms = p_ms if dtype == torch.float32 else device_ms(cudnn_block(*args))
+            with full_fp32():
+                l_ms = p_ms if dtype == torch.float32 else device_ms(cudnn_block(*args))
             cmid = c // 2
             macs = BATCH * h * h * (c * cmid + 9 * cmid * c)
             nbytes = size * (2 * BATCH * h * h * c + 10 * c * cmid + cmid + c)
@@ -335,6 +357,109 @@ def check_int8_kernels(card):
     return summary
 
 
+def cudnn_conv(x2d, w, bias, b, hw, taps, leaky):
+    """One padded-2D bf16 conv as a cuDNN chain on the same input without
+    its border (channels-last conv + bias + leaky, bf16): the yardstick,
+    which the port never calls."""
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+
+    x = FC.unpack_p2d(x2d, b, hw, hw).contiguous().permute(0, 3, 1, 2)   # NHWC memory
+    k = (w.reshape(3, 3, *w.shape[-2:]) if taps == 9 else w[None, None])
+    k = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = 1 if taps == 9 else 0
+
+    def run():
+        y = F.conv2d(x, k, bias, padding=pad)
+        return F.leaky_relu(y, 0.1) if leaky else y
+
+    return run
+
+
+def check_bf16_p2d_kernels(card):
+    """Phase 3, bf16 padded-2D kernels: each within rtol = atol = 2e-2 of
+    its plain version at every head and up shape of the bf16 forward at
+    batch 8, and res_block_p2d at 26^2 beside the fused residual block;
+    returns per-kernel {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}: device ms summed over one forward's launches (res_block_p2d,
+    which no forward launches: one call at 26^2)."""
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+    from yolo_v3_tpu_torch.utils.precision import full_fp32
+
+    gen = torch.Generator().manual_seed(2)
+    summary = {}
+
+    def t(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    def record(name, what, got, want, runs, n, ops, nbytes):
+        torch.testing.assert_close(got.float(), want.float(), **P2D_BF16_TOL)
+        err = (got.float() - want.float()).abs().max().item()
+        k_ms, p_ms = device_ms(runs[0]), device_ms(runs[1])
+        with full_fp32():
+            l_ms = device_ms(runs[2])
+        acc = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                            library_ms=0.0))
+        b_ms, by = add_bound(acc, n, ops, nbytes, "bf16")
+        log(f"kernel {name} {what} max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+            f"x{n} tol={P2D_BF16_TOL} | {card}")
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        acc["ms"] += n * k_ms
+        acc["plain_ms"] += n * p_ms
+        acc["library_ms"] += n * l_ms
+        return k_ms
+
+    for (taps, hw, c, n, leaky), count in BF16_CONVS.items():
+        x2d = FC.pack_p2d(t(BATCH, hw, hw, c, scale=0.5))
+        w = t(*((3, 3, c, n) if taps == 9 else (c, n)), scale=(taps * c) ** -0.5)
+        ones, b = torch.ones(n, device="cuda"), t(n, scale=0.1, dtype=torch.float32)
+        _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        fn, ref = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if taps == 9
+                   else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
+        kw = dict(leaky=leaky, out_dtype=torch.bfloat16)
+        got = fn(x2d, w, ones, b, hp, wp, **kw)
+        torch.cuda.synchronize()
+        rows = x2d.shape[0]
+        nbytes = 2 * (rows * c + w.numel() + rows * n) + 8 * n
+        record(f"{fn.__name__}_bf16", f"[{BATCH},{hw},{hw},{c}]->{n}"
+               f"{'' if leaky else ' no leaky'}", got, ref(x2d, w, ones, b, hp, wp, **kw),
+               (lambda: fn(x2d, w, ones, b, hp, wp, **kw),
+                lambda: ref(x2d, w, ones, b, hp, wp, **kw),
+                cudnn_conv(x2d, w, b.bfloat16(), BATCH, hw, taps, leaky)), count,
+               2 * BATCH * hw * hw * taps * c * n, nbytes)
+
+    hw, c = 26, 512
+    y, w1, b1, w2, b2 = block_inputs(hw, c, torch.bfloat16, seed=3)
+    _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+    ones = torch.ones(c, device="cuda")
+    args = (FC.pack_p2d(y), w1, ones[:c // 2], b1.float(), w2, ones, b2.float(), hp, wp)
+    got = FC.res_block_p2d(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    b4 = fused_res_block(y, w1, b1, w2, b2)
+    torch.testing.assert_close(FC.unpack_p2d(got, BATCH, hw, hw).float(), b4.float(),
+                               **P2D_BF16_TOL)
+    rows = args[0].shape[0]
+    k_ms = record("res_block_p2d_bf16", f"[{BATCH},{hw},{hw},{c}] (one call)", got,
+                  FC.res_block_p2d_ref(*args, out_dtype=torch.bfloat16),
+                  (lambda: FC.res_block_p2d(*args, out_dtype=torch.bfloat16),
+                   lambda: FC.res_block_p2d_ref(*args, out_dtype=torch.bfloat16),
+                   cudnn_block(y, w1, b1, w2, b2)), 1,
+                  2 * BATCH * hw * hw * 10 * c * (c // 2),
+                  2 * (2 * rows * c + w1.numel() + w2.numel()) + 8 * (c // 2 + c))
+    log(f"kernel res_block_p2d_bf16 [{BATCH},{hw},{hw},{c}] beside fused_res_block: "
+        f"{k_ms:.4f} vs {device_ms(lambda: fused_res_block(y, w1, b1, w2, b2)):.4f} ms "
+        f"| {card}")
+    for name, acc in summary.items():
+        finish_bound(acc)
+        per = "one call at 26^2" if name.startswith("res_block") else "per forward"
+        log(f"kernel {name} {per}: kernel_ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} library_ms={acc['library_ms']:.4f} "
+            f"(cuDNN bf16 chain) bound_ms={acc['bound_ms']:.4f} ({acc['bound_by']}) "
+            f"| {card}")
+    return summary
+
+
 def spread_batchnorm(params, state, gen):
     """Give the random model BN statistics and scales drawn from ``gen``,
     so activations keep their size through the 75 convs and some scores
@@ -395,11 +520,12 @@ def same_rows(a, b, box_atol=1e-2, prob_atol=1e-4):
 
 
 def main_path(card, weights_path, imgs):
-    """Phases 4 and 5 in bf16 and fp32.  Returns ({dtype: launches in that
-    dtype's main run}, the fp32 detection rows)."""
+    """Phases 4 and 5 in bf16 and fp32.  Returns ({dtype: {kernel: launches
+    in that dtype's main run}}, the fp32 detection rows)."""
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import weights as W
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
     from yolo_v3_tpu_torch.ops.postprocess import postprocess_from_raws
     from yolo_v3_tpu_torch.utils.config import YoloConfig
@@ -416,18 +542,25 @@ def main_path(card, weights_path, imgs):
                                             precision=precision)
         check(det.model.num_res_blocks == n_blocks, "23 residual blocks")
 
-        fused_res_block.launches = 0
+        counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
+                    "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
+        for fn in counters.values():
+            fn.launches = 0
         rows = det.detect(imgs)
         torch.cuda.synchronize()
-        launches[dtype] = fused_res_block.launches
-        check(launches[dtype] == n_blocks,
-              f"{launches[dtype]} kernel launches in one forward, want {n_blocks}")
+        launches[dtype] = {k: fn.launches for k, fn in counters.items()}
+        # fp32 runs its heads on cuDNN: the padded-2D kernels have no fp32 mode
+        want = (dict(BF16_LAUNCHES, res_block_p2d=0) if dtype == torch.bfloat16 else
+                dict(fused_res_block=n_blocks, conv1x1_p2d=0, conv3x3_p2d=0,
+                     res_block_p2d=0))
+        check(launches[dtype] == want,
+              f"{precision} launches in one forward {launches[dtype]}, want {want}")
         check_rows(rows, imgs, config.num_classes)
         if dtype == torch.float32:
             fp32_rows = rows
         n_det = [len(r) for r in rows]
-        log(f"main {precision}: detect(8 images) ok, kernel launches={launches[dtype]} "
-            f"(= {n_blocks} residual blocks), detections per image={n_det} | {card}")
+        log(f"main {precision}: detect(8 images) ok, kernel launches {launches[dtype]} "
+            f"({n_blocks} residual blocks), detections per image={n_det} | {card}")
 
         # raw heads, kernel path vs plain path, on the card
         x, _ = det.preprocess(imgs)
@@ -580,9 +713,6 @@ def main():
     import yolo_v3_tpu_torch
     from yolo_v3_tpu_torch.ops import _build
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -597,6 +727,7 @@ def main():
         f"(set-up, in parallel) | {card}")
 
     summary = check_kernel(card)
+    summary_bf16 = check_bf16_p2d_kernels(card)
     summary_i8 = check_int8_kernels(card)
 
     work = os.path.join(os.path.dirname(os.path.abspath(yolo_v3_tpu_torch.__file__)),
@@ -613,20 +744,23 @@ def main():
     kernels = [dict(name=f"fused_res_block_{NAMES[dt]}", route="cuda",
                     source="yolo_v3_tpu_torch/csrc/fused_res_block.cu",
                     replaces="yolo_v3_tpu/ops/pallas_kernels.py:97",
-                    launches=launches[dt], **summary[dt])
+                    launches=launches[dt]["fused_res_block"], **summary[dt])
                for dt in (torch.float32, torch.bfloat16)]
-    int8 = (("conv1x1_p2d", "csrc/conv_p2d.cu", "fused_conv.py:131"),
-            ("conv3x3_p2d", "csrc/conv_p2d.cu", "fused_conv.py:236"),
-            ("res_block_p2d", "ops/fused_conv.py", "fused_conv.py:313"),
-            ("fused_entry", "csrc/fused_entry.cu", "entry_kernel.py:193"))
-    for name, source, replaces in int8:
-        entry = dict(name=f"{name}_int8", route="cuda",
-                     source=f"yolo_v3_tpu_torch/{source}",
-                     replaces=f"yolo_v3_tpu/ops/{replaces}",
-                     launches=launches_i8[name], **summary_i8[f"{name}_int8"])
-        if name == "res_block_p2d":
-            entry["composition_of"] = ["conv1x1_p2d_int8", "conv3x3_p2d_int8"]
-        kernels.append(entry)
+    p2d = (("conv1x1_p2d", "csrc/conv_p2d.cu", "fused_conv.py:131"),
+           ("conv3x3_p2d", "csrc/conv_p2d.cu", "fused_conv.py:236"),
+           ("res_block_p2d", "ops/fused_conv.py", "fused_conv.py:313"))
+    for mode, counts, measured in (("bf16", launches[torch.bfloat16], summary_bf16),
+                                   ("int8", launches_i8, summary_i8)):
+        for name, source, replaces in p2d + ((("fused_entry", "csrc/fused_entry.cu",
+                                                "entry_kernel.py:193"),)
+                                              if mode == "int8" else ()):
+            entry = dict(name=f"{name}_{mode}", route="cuda",
+                         source=f"yolo_v3_tpu_torch/{source}",
+                         replaces=f"yolo_v3_tpu/ops/{replaces}",
+                         launches=counts[name], **measured[f"{name}_{mode}"])
+            if name == "res_block_p2d":
+                entry["composition_of"] = [f"conv1x1_p2d_{mode}", f"conv3x3_p2d_{mode}"]
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

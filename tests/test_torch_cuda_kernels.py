@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc; without them it skips.  The
-file imports no JAX, so it also runs on a host without it:
+global TF32 flags stay at PyTorch's defaults: the plain versions turn TF32
+off themselves.  The file imports no JAX, so it also runs on a host without
+it:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import (
@@ -30,8 +33,6 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -195,8 +196,8 @@ def test_int8_res_block_kernel_matches_plain(dev):
 
 def test_int8_conv_kernel_rejects_bad_operands(dev):
     x2d, wt, s, bias, _ = _conv_inputs(1, 4, 4, 16, 8, 1, False, dev)
-    with pytest.raises(TypeError):                 # the bf16-input mode is not ported
-        FC.conv1x1_p2d(x2d.bfloat16(), wt.bfloat16(), s, bias, 6, 6)
+    with pytest.raises(TypeError):                 # bf16 input with an int8 weight
+        FC.conv1x1_p2d(x2d.bfloat16(), wt, s, bias, 6, 6)
     with pytest.raises(ValueError):
         FC.conv3x3_p2d(x2d, wt, s, bias, 6, 6)     # a 1x1 weight for the 3x3
     with pytest.raises(ValueError):
@@ -237,3 +238,154 @@ def test_fused_entry_kernel_rejects_bad_operands(dev):
     bad = dict(qs2d, stem=dict(qs2d["stem"], w=qs2d["stem"]["w"].float()))
     with pytest.raises(ValueError):
         EK.fused_entry(xb, bad, 0.6)
+
+
+# ---------------------------------------------------------------------------
+# bf16 kernels: conv1x1_p2d, conv3x3_p2d (res_block_p2d) with bf16 input and
+# float32 accumulation, held to the plain version (a float32 product of the
+# bf16 values) at the JAX suite's bf16 tolerance: the two sum in another
+# order, so a rounding point may flip by one bf16 ulp.
+# ---------------------------------------------------------------------------
+
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# every (taps, H = W, C, N, leaky) of the bf16 forward's heads and up convs at
+# YOLOv3-416 (13 shapes for its 23 convs; the dets have N = 255, no leaky)
+BF16_HEAD_SHAPES = [
+    (1, 13, 1024, 512, True), (9, 13, 512, 1024, True), (1, 13, 1024, 255, False),
+    (1, 13, 512, 256, True),
+    (1, 26, 768, 256, True), (1, 26, 512, 256, True), (9, 26, 256, 512, True),
+    (1, 26, 512, 255, False), (1, 26, 256, 128, True),
+    (1, 52, 384, 128, True), (1, 52, 256, 128, True), (9, 52, 128, 256, True),
+    (1, 52, 256, 255, False),
+]
+
+
+def _bf16_conv_inputs(b, h, w, c, n, taps, residual, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.bfloat16):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    x2d = FC.pack_p2d(t(rng.normal(size=(b, h, w, c)) * 0.5))
+    wt = t(rng.normal(size=(3, 3, c, n) if taps == 9 else (c, n)) / np.sqrt(taps * c))
+    scale = t(np.ones(n), torch.float32)
+    bias = t(rng.normal(size=n) * 0.1, torch.float32)
+    res = t(rng.normal(size=(x2d.shape[0], n))) if residual else None
+    return x2d, wt, scale, bias, res
+
+
+def _bf16_conv_case(dev, taps, b, h, w, c, n, leaky, residual, res_scale=1.0):
+    x2d, wt, s, bias, res = _bf16_conv_inputs(b, h, w, c, n, taps, residual, dev)
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    fn, ref = ((FC.conv1x1_p2d, FC.conv1x1_p2d_ref) if taps == 1
+               else (FC.conv3x3_p2d, FC.conv3x3_p2d_ref))
+    kw = dict(leaky=leaky, out_dtype=torch.bfloat16, residual=res, res_scale=res_scale)
+    before = fn.launches
+    got = fn(x2d, wt, s, bias, hp, wp, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(x2d, wt, s, bias, hp, wp, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    full = got.reshape(b, h + 2, w + 2, n).float()
+    assert full[:, 0].abs().sum() == 0 and full[:, :, -1].abs().sum() == 0
+
+
+@pytest.mark.parametrize("taps,hw,c,n,leaky", BF16_HEAD_SHAPES,
+                         ids=[f"{'3x3' if t == 9 else '1x1'}-{h}-{c}-{n}"
+                              for t, h, c, n, _ in BF16_HEAD_SHAPES])
+def test_bf16_conv_kernel_matches_plain_at_head_shapes(dev, taps, hw, c, n, leaky):
+    _bf16_conv_case(dev, taps, 8, hw, hw, c, n, leaky, residual=False)
+
+
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+def test_bf16_conv_kernel_matches_plain_ragged(dev, taps):
+    """R = 3 * 13 * 11 rows (no tile divides it), C = 40 and N = 36 off the
+    tile sizes, a residual with res_scale 0.7."""
+    _bf16_conv_case(dev, taps, 3, 11, 9, 40, 36, True, residual=True, res_scale=0.7)
+
+
+def test_bf16_res_block_matches_plain_and_fused_block(dev):
+    """bf16 res_block_p2d at 26^2, C = 512, batch 8: against its plain
+    version, and against the fused residual-block kernel (B4) on the same
+    block, which rounds conv2's activation before the residual add where
+    the composition rounds once after it."""
+    y, w1, b1, w2, b2 = _block_inputs((8, 26, 26, 512), 256, torch.bfloat16, dev)
+    _, hp, wp = FC.p2d_geometry(8, 26, 26)
+    ones = torch.ones(512, device=dev)
+    args = (FC.pack_p2d(y), w1, ones[:256], b1.float(), w2, ones, b2.float(), hp, wp)
+    counts = (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches, FC.res_block_p2d.launches)
+    got = FC.res_block_p2d(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches,
+            FC.res_block_p2d.launches) == tuple(k + 1 for k in counts)
+    want = FC.res_block_p2d_ref(*args, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    b4 = fused_res_block(y, w1, b1, w2, b2)
+    torch.testing.assert_close(FC.unpack_p2d(got, 8, 26, 26).float(), b4.float(),
+                               **BF16_TOL)
+
+
+def test_bf16_conv_kernel_rejects_bad_operands(dev):
+    x2d, wt, s, bias, res = _bf16_conv_inputs(1, 4, 4, 16, 8, 1, True, dev)
+    before = FC.conv1x1_p2d.launches
+    with pytest.raises(TypeError):                 # bf16 input, int8 weight
+        FC.conv1x1_p2d(x2d, wt.to(torch.int8), s, bias, 6, 6)
+    with pytest.raises(TypeError):                 # int8 input, bf16 residual
+        FC.conv1x1_p2d(x2d.to(torch.int8), wt.to(torch.int8), s, bias, 6, 6,
+                       residual=res)
+    with pytest.raises(TypeError):                 # bf16 input, int8 residual
+        FC.conv1x1_p2d(x2d, wt, s, bias, 6, 6, residual=res.to(torch.int8))
+    with pytest.raises(ValueError):                # C % 8 != 0
+        FC.conv1x1_p2d(x2d[:, :12].contiguous(), wt[:12].contiguous(), s, bias, 6, 6)
+    with pytest.raises(TypeError):                 # bf16 scale
+        FC.conv1x1_p2d(x2d, wt, s.bfloat16(), bias, 6, 6)
+    assert FC.conv1x1_p2d.launches == before
+
+
+def _small_net(dtype, dev):
+    params, state = D.init_yolonet(torch.Generator().manual_seed(0), 2,
+                                   blocks=(1, 1, 1, 1, 1))
+    folded = D.fold_batchnorm(params, state)
+    return D.YoloNetFolded(D.cast_params(folded, dtype, dev)).eval()
+
+
+def test_bf16_forward_runs_heads_on_the_p2d_kernels(dev):
+    """A bf16 forward launches one fused residual block per block, 14
+    conv1x1_p2d (per head three 1x1s and the det, plus the two ups) and 9
+    conv3x3_p2d; its heads are within 5e-2 * max|head| of the plain path."""
+    model = _small_net(torch.bfloat16, dev)
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.bfloat16)
+    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        heads = model(x)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [5, 14, 9]
+        plain = model(x, plain=True)
+    for h, p in zip(heads, plain):
+        assert h.dtype == torch.bfloat16 and h.shape == p.shape
+        scale = p.float().abs().max().item()
+        assert (h.float() - p.float()).abs().max().item() <= 5e-2 * scale
+
+
+def test_fp32_heads_do_not_depend_on_global_tf32(dev):
+    """The fp32 forward turns TF32 off for its cuDNN convs and restores the
+    caller's flags: heads the same with the global TF32 switches on and off."""
+    model = _small_net(torch.float32, dev)
+    x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    heads = {}
+    try:
+        for tf32 in (True, False):
+            cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+            with torch.inference_mode():
+                heads[tf32] = model(x)
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (tf32, tf32)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    for on, off in zip(heads[True], heads[False]):
+        scale = off.abs().max().item()
+        torch.testing.assert_close(on, off, rtol=1e-5, atol=1e-5 * scale)

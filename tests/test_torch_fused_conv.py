@@ -186,3 +186,104 @@ def test_cpu_wrappers_do_not_count_launches(rng):
     t = torch.from_numpy
     TF.conv1x1_p2d(TF.pack_p2d(t(x)), t(wt), t(scale), t(bias), 6, 6)
     assert (TF.conv1x1_p2d.launches, TF.conv3x3_p2d.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# bf16 input (float32 accumulation).  The JAX suite holds this mode at rtol =
+# atol = 2e-2 (tests/test_fused_conv.py:115).  Here the scale is 1, as the
+# float model's heads use it, and the weights are scaled by 1/sqrt(K), so
+# that outputs are of order 1 and the tolerance is not met by small values.
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(rng, b, h, w, c, n, taps):
+    """(x2d, w, scale, bias) as bf16-valued float32 numpy arrays (x2d packed
+    by the JAX package) and float32 scale and bias."""
+    def bf(a):
+        return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+    x2d = bf(JF.pack_p2d(jnp.asarray(rng.standard_normal((b, h, w, c), np.float32))))
+    shape = (c, n) if taps == 1 else (3, 3, c, n)
+    wt = bf(rng.standard_normal(shape, np.float32) / np.sqrt(taps * c))
+    bias = (rng.normal(size=n) * 0.1).astype(np.float32)
+    return x2d, wt, np.ones(n, np.float32), bias
+
+
+def _both_bf16(taps, x2d, wt, scale, bias, hp, wp, tile, residual=None, **kw):
+    """(port, JAX) bf16 outputs, both as float32 numpy, of one conv."""
+    jfn, tfn = ((JF.conv1x1_p2d, TF.conv1x1_p2d) if taps == 1
+                else (JF.conv3x3_p2d, TF.conv3x3_p2d))
+    j16 = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731 (exact: bf16 values)
+    t16 = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    want = jfn(j16(x2d), j16(wt), jnp.asarray(scale), jnp.asarray(bias), hp, wp,
+               out_dtype=jnp.bfloat16,
+               residual=None if residual is None else j16(residual),
+               tile_m=JF.pick_tile_m(x2d.shape[0], tile), tile_n=wt.shape[-1],
+               interpret=True, **kw)
+    got = tfn(t16(x2d), t16(wt), torch.from_numpy(scale), torch.from_numpy(bias), hp, wp,
+              out_dtype=torch.bfloat16,
+              residual=None if residual is None else t16(residual), **kw)
+    assert got.dtype == torch.bfloat16
+    return got.float().numpy(), np.asarray(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+@pytest.mark.parametrize("b,h,w,c,n,residual,leaky", [
+    (2, 6, 6, 16, 24, False, True),
+    (2, 8, 10, 32, 24, True, True),
+    (1, 5, 7, 16, 21, True, True),     # R = 63 (ragged), N % 8 != 0, residual
+    (1, 5, 7, 24, 21, False, False),   # a detection conv: no leaky
+])
+def test_bf16_conv_matches_jax(rng, taps, b, h, w, c, n, residual, leaky):
+    """bf16-input conv1x1_p2d / conv3x3_p2d against the Pallas kernels in
+    interpret mode at rtol = atol = 2e-2.  Measured max abs error over these
+    cases 3.0e-8, on outputs up to 5.8 (0 in 7 of the 8: on the CPU both
+    accumulate the bf16 products in float32 and round once)."""
+    x2d, wt, scale, bias = _bf16_inputs(rng, b, h, w, c, n, taps)
+    r, hp, wp = TF.p2d_geometry(b, h, w)
+    res = None
+    if residual:
+        res = np.array(jnp.asarray(rng.standard_normal((r, n), np.float32),
+                                   jnp.bfloat16).astype(jnp.float32))
+    got, want = _both_bf16(taps, x2d, wt, scale, bias, hp, wp, 64, residual=res,
+                           leaky=leaky)
+    assert np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+    full = got.reshape(b, hp, wp, n)
+    assert (full[:, 0] == 0).all() and (full[:, :, -1] == 0).all()
+
+
+def test_bf16_res_block_matches_jax(rng):
+    """bf16 res_block_p2d (the two bf16 kernels, the residual fused into the
+    3x3's epilogue) against the Pallas composition in interpret mode at rtol
+    = atol = 2e-2.  Measured max abs error 2.4e-7, on outputs up to 4.4."""
+    b, h, w, c = 2, 8, 8, 32
+    cm = c // 2
+    x2d, w1, s1, b1 = _bf16_inputs(rng, b, h, w, c, cm, 1)
+    _, w2, s2, b2 = _bf16_inputs(rng, b, h, w, cm, c, 9)
+    r, hp, wp = TF.p2d_geometry(b, h, w)
+    j16 = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    t16 = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    t = torch.from_numpy
+    want = JF.res_block_p2d(j16(x2d), j16(w1), jnp.asarray(s1), jnp.asarray(b1),
+                            j16(w2), jnp.asarray(s2), jnp.asarray(b2), hp, wp,
+                            out_dtype=jnp.bfloat16, tile_m=JF.pick_tile_m(r, 80),
+                            interpret=True)
+    got = TF.res_block_p2d(t16(x2d), t16(w1), t(s1), t(b1), t16(w2), t(s2), t(b2),
+                           hp, wp, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("inference", [False, True], ids=["normal", "inference"])
+def test_k_major_follows_in_place_writes(inference):
+    """The K-major copy is never stale: after ``w.mul_(2)`` under
+    ``torch.inference_mode()`` the next call returns the new layout, also
+    for an inference tensor, which has no version counter."""
+    with torch.inference_mode(inference):
+        w = torch.arange(-6, 6, dtype=torch.int8).reshape(3, 4)
+    first = TF.k_major(w, w).clone()
+    np.testing.assert_array_equal(first.numpy(), w.t().numpy())
+    with torch.inference_mode():
+        w.mul_(2)
+    np.testing.assert_array_equal(TF.k_major(w, w).numpy(), 2 * first.numpy())

@@ -314,3 +314,26 @@ def test_bf16_kernel_emulation_holds_bf16_tolerance(shape, cmid, cs):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1.6e-2, atol=1.6e-2)
     np.testing.assert_allclose(got.numpy(), _pallas_bf16(shape, cmid, arrs),
                                rtol=1.6e-2, atol=1.6e-2)
+
+
+@pytest.mark.parametrize("layout", [tf32_weights, bf16_weights], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("inference", [False, True], ids=["normal", "inference"])
+def test_weight_layouts_follow_in_place_writes(layout, inference):
+    """A cached kernel layout is never stale: after ``w1.mul_(2)`` and
+    ``w2.mul_(2)`` under ``torch.inference_mode()`` the next call returns the
+    layout of the new weights, also for inference tensors, which have no
+    version counter."""
+    dtype = torch.float32 if layout is tf32_weights else torch.bfloat16
+    _, w1, _, w2, _ = _inputs((1, 4, 4, 16), 8)
+    with torch.inference_mode(inference):
+        w1 = torch.from_numpy(w1.reshape(16, 8)).to(dtype)
+        w2 = torch.from_numpy(w2).to(dtype)
+    first = [t.clone() for t in layout(w1, w2)]
+    with torch.inference_mode():
+        w1.mul_(2)
+        w2.mul_(2)
+    with torch.inference_mode(inference):
+        want = layout(w1.clone(), w2.clone())           # fresh tensors: no cache
+    for got, old, new in zip(layout(w1, w2), first, want):
+        assert not torch.equal(got, old)
+        torch.testing.assert_close(got, new, rtol=0, atol=0)

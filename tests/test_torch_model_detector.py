@@ -69,6 +69,73 @@ def test_folded_forward_matches_jax(trees):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
 
 
+def _bf16_heads_vs_jax(p, s, plain):
+    """max |port - JAX| / max |JAX| per head, bf16 forward on both sides (the
+    params folded in float32, then cast)."""
+    x = np.random.default_rng(2).uniform(0, 1, (2, 96, 96, 3)).astype(np.float32)
+    jf = JD.cast_params(JD.fold_batchnorm(jax.tree.map(jnp.asarray, p),
+                                          jax.tree.map(jnp.asarray, s)), jnp.bfloat16)
+    want = JD.apply_yolonet_folded(jf, jnp.asarray(x, jnp.bfloat16))
+    model = TD.YoloNetFolded(TD.cast_params(
+        TD.fold_batchnorm(TW.params_from_numpy(p), TW.params_from_numpy(s)), torch.bfloat16))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).bfloat16(), plain=plain)
+    ratios = []
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
+        ratios.append(float(np.abs(g.float().numpy() - w).max() / np.abs(w).max()))
+    return ratios
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrappers"])
+def test_bf16_heads_match_jax(trees, plain):
+    """The port's bf16 forward against JAX ``apply_yolonet_folded`` in bf16:
+    every head within 5e-2 * max|head| (the bf16 heads gate of
+    chip_smoke.py).  On the CPU the wrappers run the plain versions, so both
+    ids compute the same.  Measured (coarse head first): 6.2e-3, 1.08e-2,
+    1.14e-2 with the head and up convs on the padded-2D kernels' single
+    rounding point; 6.2e-3, 8.1e-3, 1.14e-2 with all 29 non-block convs on
+    F.conv2d, which rounds conv + bias and then leaky again."""
+    ratios = _bf16_heads_vs_jax(*trees, plain)
+    print("bf16 heads, max|port - jax| / max|jax|:", ratios)
+    assert max(ratios) <= 5e-2
+
+
+@pytest.mark.parametrize("tf32", [True, False], ids=["tf32_on", "tf32_off"])
+def test_fp32_forward_runs_without_tf32_and_restores_flags(trees, tf32):
+    """An fp32 forward runs every cuDNN convolution with TF32 off, whatever
+    the caller set, and gives the caller's flags back afterwards, also when
+    the forward raises."""
+    p, s = trees
+    model = TD.YoloNetFolded(TD.fold_batchnorm(TW.params_from_numpy(p),
+                                               TW.params_from_numpy(s)))
+    cudnn = torch.backends.cudnn
+
+    def flags():
+        return (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+
+    seen = []
+    model.stem.register_forward_pre_hook(lambda m, a: seen.append(flags()))
+    model.head2.det.register_forward_pre_hook(lambda m, a: seen.append(flags()))
+    saved = flags()
+    try:
+        cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        before = flags()
+        with torch.no_grad():
+            model(torch.zeros(1, 64, 64, 3))
+        assert seen == [(False, False, "highest")] * 2
+        assert flags() == before
+        with pytest.raises(RuntimeError):
+            model(torch.zeros(1, 64, 64, 5))                 # 5 channels: conv raises
+        assert flags() == before
+    finally:
+        cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[2])
+
+
 def test_upsample_matches_jax():
     x = np.random.default_rng(3).normal(size=(2, 3, 5, 4)).astype(np.float32)
     np.testing.assert_array_equal(

@@ -7,14 +7,20 @@ the packages (``models/weights.py``).  :class:`YoloNetFolded` takes NHWC
 images and returns NHWC raw heads; inside, activations are NCHW tensors in
 ``torch.channels_last`` memory format, which is physically NHWC.
 
-Stem, downsample, head, upsample and detection convs run on ``F.conv2d``.
 Every residual block runs on :func:`~yolo_v3_tpu_torch.ops.fused_res_block.
-fused_res_block`, the hand-written CUDA kernel on a card.  The space-to-depth
-weight folds, from which the int8 tree's entry is built, are at the end.
+fused_res_block`, the hand-written CUDA kernel on a card.  The stem and the
+stride-2 downsamples run on ``F.conv2d``.  In bf16 the heads, their
+detection convs and the two upsample convs run on the padded-2D kernels
+(:mod:`~yolo_v3_tpu_torch.ops.fused_conv`), which add the bias and apply
+leaky in float32 and round once, as the reference's ``_conv_bias_leaky``
+does; in fp32 they run on ``F.conv2d``, and the whole forward runs with TF32
+off.  The space-to-depth weight folds, from which the int8 tree's entry is
+built, are at the end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -23,7 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -221,19 +229,61 @@ class _Head(nn.Module):
         return self.det(x), branch
 
 
+class _P2dConv(nn.Module):
+    """A stride-1 1x1 or 3x3 conv + bias (+ LeakyReLU) on the padded-2D
+    layout, from an HWIO weight: the bf16 kernels with scale 1 and a float32
+    bias, bf16 out."""
+
+    def __init__(self, p: Params, leaky: bool = True):
+        super().__init__()
+        w = p["w"]
+        self.taps = w.shape[0] * w.shape[1]
+        if self.taps == 1:
+            w = w.reshape(w.shape[2], w.shape[3])
+        self.register_buffer("weight", w.contiguous())
+        self.register_buffer("scale", torch.ones(w.shape[-1], dtype=torch.float32,
+                                                 device=w.device))
+        self.register_buffer("bias", p["b"].float().contiguous())
+        self.leaky = leaky
+
+    def forward(self, x2d, hp, wp, plain):
+        fn = {(1, False): FC.conv1x1_p2d, (1, True): FC.conv1x1_p2d_ref,
+              (9, False): FC.conv3x3_p2d, (9, True): FC.conv3x3_p2d_ref}[self.taps, plain]
+        return fn(x2d, self.weight, self.scale, self.bias, hp, wp, leaky=self.leaky,
+                  out_dtype=torch.bfloat16)
+
+
+class _P2dHead(nn.Module):
+    """A head on the padded-2D layout (the int8 ``_QHead``'s structure)."""
+
+    def __init__(self, hp: Params):
+        super().__init__()
+        self.convs = nn.ModuleList(_P2dConv(hp[f"conv{i}"]) for i in range(6))
+        self.det = _P2dConv(hp["det"], leaky=False)
+
+    def forward(self, x2d, hp, wp, plain):
+        for i, conv in enumerate(self.convs):
+            x2d = conv(x2d, hp, wp, plain)
+            if i == 4:
+                branch = x2d
+        return self.det(x2d, hp, wp, plain), branch
+
+
 class YoloNetFolded(nn.Module):
     """Inference YOLOv3 on BN-folded params (see :func:`fold_batchnorm`),
     the port of the JAX ``apply_yolonet_folded`` on non-s2d params.
 
     ``forward(x)`` takes an NHWC image batch in the params' dtype and
     returns the three raw heads, coarse first, each
-    [B, H/s, W/s, 3*(5+C)] NHWC.  The residual blocks run on the kernel
-    wrapper, or on its plain version with ``plain=True``.
+    [B, H/s, W/s, 3*(5+C)] NHWC.  The residual blocks, and in bf16 the head
+    and upsample convs, run on the kernel wrappers, or on their plain
+    versions with ``plain=True``.  An fp32 forward runs with TF32 off.
     """
 
     def __init__(self, params: Params):
         super().__init__()
         bk = params["backbone"]
+        self.dtype = bk["stem"]["w"].dtype
         self.stem = _ConvBias(bk["stem"])
         self.downs = nn.ModuleList()
         self.stages = nn.ModuleList()
@@ -242,35 +292,61 @@ class YoloNetFolded(nn.Module):
             self.downs.append(_ConvBias(sp["down"], stride=2))
             self.stages.append(nn.ModuleList(
                 _ResBlock(sp[f"res{b}"]) for b in range(_stage_blocks(sp))))
-        self.head0 = _Head(params["head0"])
-        self.up0 = _ConvBias(params["up0"]["conv"])
-        self.head1 = _Head(params["head1"])
-        self.up1 = _ConvBias(params["up1"]["conv"])
-        self.head2 = _Head(params["head2"])
+        # bf16: the heads on the padded-2D kernels, which have no fp32 mode
+        head, up = ((_P2dHead, _P2dConv) if self.dtype == torch.bfloat16
+                    else (_Head, _ConvBias))
+        self.head0 = head(params["head0"])
+        self.up0 = up(params["up0"]["conv"])
+        self.head1 = head(params["head1"])
+        self.up1 = up(params["up1"]["conv"])
+        self.head2 = head(params["head2"])
 
     @property
     def num_res_blocks(self) -> int:
         return sum(len(s) for s in self.stages)
 
     def forward(self, x: torch.Tensor, plain: bool = False):
-        res_block = fused_res_block_ref if plain else fused_res_block
-        y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        y = self.stem(y)
-        routes: List[torch.Tensor] = []
-        for i, (down, blocks) in enumerate(zip(self.downs, self.stages)):
-            y = down(y)
-            for blk in blocks:
-                y = blk(y, res_block)
-            if i >= 2:
-                routes.append(y)
-        c3, c4, c5 = routes
+        exact = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        with exact:
+            res_block = fused_res_block_ref if plain else fused_res_block
+            y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            y = self.stem(y)
+            routes: List[torch.Tensor] = []
+            for i, (down, blocks) in enumerate(zip(self.downs, self.stages)):
+                y = down(y)
+                for blk in blocks:
+                    y = blk(y, res_block)
+                if i >= 2:
+                    routes.append(y)
+            if isinstance(self.head0, _P2dHead):
+                return self._p2d_heads(routes, plain)
+            c3, c4, c5 = routes
+            det0, br0 = self.head0(c5)
+            y = torch.cat([_upsample_nchw(self.up0(br0)), c4], dim=1)
+            det1, br1 = self.head1(y)
+            y = torch.cat([_upsample_nchw(self.up1(br1)), c3], dim=1)
+            det2, _ = self.head2(y)
+            return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2))
 
-        det0, br0 = self.head0(c5)
-        y = torch.cat([_upsample_nchw(self.up0(br0)), c4], dim=1)
-        det1, br1 = self.head1(y)
-        y = torch.cat([_upsample_nchw(self.up1(br1)), c3], dim=1)
-        det2, _ = self.head2(y)
-        return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2))
+    def _p2d_heads(self, routes, plain):
+        """The heads and upsample convs on the padded-2D layout: each route
+        packed once, the up conv's output unpacked, upsampled, concatenated
+        with the next route and packed again."""
+        c3, c4, c5 = (r.permute(0, 2, 3, 1) for r in routes)     # NHWC views
+
+        def geometry(t):
+            _, hp, wp = FC.p2d_geometry(*t.shape[:3])
+            return hp, wp
+
+        def up_concat(up, br2d, small, route):
+            u = FC.unpack_p2d(up(br2d, *geometry(small), plain), *small.shape[:3])
+            return FC.pack_p2d(torch.cat([upsample2x_nearest(u), route], dim=-1))
+
+        det0, br0 = self.head0(FC.pack_p2d(c5), *geometry(c5), plain)
+        det1, br1 = self.head1(up_concat(self.up0, br0, c5, c4), *geometry(c4), plain)
+        det2, _ = self.head2(up_concat(self.up1, br1, c4, c3), *geometry(c3), plain)
+        return tuple(FC.unpack_p2d(d, *g.shape[:3]).contiguous()
+                     for d, g in ((det0, c5), (det1, c4), (det2, c3)))
 
 
 def _upsample_nchw(x: torch.Tensor) -> torch.Tensor:

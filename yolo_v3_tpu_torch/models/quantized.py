@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 QUANTIZED_FORMAT = "yolo_v3_tpu/quantized-v1"
 # calibration quantile: 99.97% of the activation mass inside the int8 range
@@ -275,13 +276,8 @@ def build_quantized(params, state, calib_x: torch.Tensor,
                               D.cast_params(state, torch.float32, calib_x.device))
     if space_to_depth:
         folded = D.fold_space_to_depth(folded)
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            stats = calibrate_yolonet(folded, calib_x)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    with full_fp32(), torch.no_grad():
+        stats = calibrate_yolonet(folded, calib_x)
     stats = {k: np.asarray(v.cpu(), np.float32) for k, v in stats.items()}
     return quantize_yolonet(D.map_tree(lambda t: t.cpu(), folded), stats)
 

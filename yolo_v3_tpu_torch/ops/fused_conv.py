@@ -1,5 +1,5 @@
-"""Fused int8 convolutions on the padded-2D activation layout: the port of
-``yolo_v3_tpu/ops/fused_conv.py`` (``conv1x1_p2d``, ``conv3x3_p2d``,
+"""Fused int8 and bf16 convolutions on the padded-2D activation layout: the
+port of ``yolo_v3_tpu/ops/fused_conv.py`` (``conv1x1_p2d``, ``conv3x3_p2d``,
 ``res_block_p2d``).
 
 A [B, H, W, C] tensor is stored as ``x2d`` [B*(H+2)*(W+2), C]: each image
@@ -12,16 +12,21 @@ and the epilogue re-zeroes the border rows, so the layout is closed under
 composition: a whole stage of residual blocks, or a head, runs in it.
 Rows outside [0, R) read as 0.
 
-Epilogue, in this order (float32, each step rounded, no fused multiply-add)::
+The input is int8 (int32 accumulation, exact) or bf16 (float32
+accumulation), with a weight of the same dtype and a residual of the
+input's dtype.  Epilogue, in this order (float32, each step rounded, no
+fused multiply-add)::
 
     y = acc * scale + bias;  y = leaky(y);  y = y + residual * res_scale
     y = 0 on border rows;    int8: clip(round_half_even(y), -127, 127)
                              bf16: round to nearest even
 
 :func:`conv1x1_p2d` and :func:`conv3x3_p2d` launch the CUDA kernel
-(``csrc/conv_p2d.cu``) for a CUDA tensor and use their plain versions
-(``*_ref``) for a CPU tensor.  The kernels take int8 input; the TPU
-kernels' bf16-input mode is not ported.
+(``csrc/conv_p2d.cu``, one entry point per input dtype) for a CUDA tensor
+and use their plain versions (``*_ref``) for a CPU tensor.  The bf16 mode
+serves the float model's heads (``models/darknet.py``) with ``scale`` = 1,
+so that conv, bias and leaky round once, as the reference's
+``_conv_bias_leaky`` does.
 
 :func:`conv_i8_nhwc` is the plain NHWC int8 convolution (explicit im2col +
 an exact int32 product) with the same epilogue: the plain version of the
@@ -38,10 +43,13 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import _build
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 LEAKY = 0.1
 
 _OUT_DTYPES = (torch.int8, torch.bfloat16)
+# input dtype -> the suffix of the kernel's C entry points
+_IN_DTYPES = {torch.int8: "i8", torch.bfloat16: "bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +146,19 @@ def _tap_rows(x2d: torch.Tensor, wp: int) -> torch.Tensor:
                       for dy in range(3) for dx in range(3)], dim=1)
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' accumulator of [M, K] @ [K, N]: exact int32 for int8;
+    float32 for bf16, whose values are exact in float32 (TF32 off)."""
+    if a.dtype == torch.int8:
+        return int_mm(a, b)
+    with full_fp32():
+        return a.float() @ b.float()
+
+
 def conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
                     out_dtype=torch.int8, residual=None, res_scale=1.0):
     """Plain version of :func:`conv1x1_p2d`."""
-    acc = int_mm(x2d, _w2d(w, x2d.shape[1], 1))
+    acc = _product(x2d, _w2d(w, x2d.shape[1], 1))
     valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
     return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
                         res_scale=res_scale, valid=valid, out_dtype=out_dtype)
@@ -150,7 +167,7 @@ def conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
 def conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
                     out_dtype=torch.int8, residual=None, res_scale=1.0):
     """Plain version of :func:`conv3x3_p2d`."""
-    acc = int_mm(_tap_rows(x2d, wp), _w2d(w, x2d.shape[1], 9))
+    acc = _product(_tap_rows(x2d, wp), _w2d(w, x2d.shape[1], 9))
     valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
     return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
                         res_scale=res_scale, valid=valid, out_dtype=out_dtype)
@@ -209,9 +226,11 @@ def k_major(w: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """``w2`` [K, N] (a view of the caller's weight ``w``) as a contiguous
     [N, K]: the layout the kernel reads.  The copy is cached on ``w`` until
     ``w`` moves or is written in place, so a model's weights are transposed
-    once."""
-    version = 0 if w.is_inference() else w._version
-    key = (w.data_ptr(), version)
+    once.  An inference tensor has no version counter, so nothing shows that
+    it was written: its copy is made anew on every call."""
+    if w.is_inference():
+        return w2.t().contiguous()
+    key = (w.data_ptr(), w._version)
     cached = getattr(w, "_k_major", None)
     if cached is None or cached[0] != key:
         cached = (key, w2.t().contiguous())
@@ -222,9 +241,9 @@ def k_major(w: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
 def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
             residual, res_scale):
     """Check the operands of a CUDA launch and run the kernel."""
-    if x2d.dtype != torch.int8:
-        raise TypeError(f"{name}: the CUDA kernel takes int8 input, got "
-                        f"{x2d.dtype} (the bf16-input mode is not ported)")
+    if x2d.dtype not in _IN_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes int8 or bfloat16 input, got "
+                        f"{x2d.dtype}")
     if x2d.dim() != 2:
         raise ValueError(f"{name}: x2d must be [R, C], got {tuple(x2d.shape)}")
     r, c = x2d.shape
@@ -232,8 +251,11 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
     n = w2.shape[1]
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"{name}: out_dtype must be int8 or bfloat16, got {out_dtype}")
-    if w.dtype != torch.int8:
-        raise TypeError(f"{name}: w must be int8, got {w.dtype}")
+    if w.dtype != x2d.dtype:
+        raise TypeError(f"{name}: w must be {x2d.dtype} like x2d, got {w.dtype}")
+    if x2d.dtype == torch.bfloat16 and c % 8:
+        raise ValueError(f"{name}: the bf16 kernel reads x2d in 16-byte rows: C must "
+                         f"be a multiple of 8, got {c}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"{name}: scale and bias must be float32")
     if tuple(scale.shape) != (n,) or tuple(bias.shape) != (n,):
@@ -241,9 +263,9 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
                          f"{tuple(scale.shape)} and {tuple(bias.shape)}")
     operands = [x2d, w2, scale, bias]
     if residual is not None:
-        if residual.dtype != torch.int8:
-            raise TypeError(f"{name}: the kernel's residual must be int8, got "
-                            f"{residual.dtype}")
+        if residual.dtype != x2d.dtype:
+            raise TypeError(f"{name}: the kernel's residual must be {x2d.dtype} like "
+                            f"x2d, got {residual.dtype}")
         if tuple(residual.shape) != (r, n):
             raise ValueError(f"{name}: residual must be [{r}, {n}], got "
                              f"{tuple(residual.shape)}")
@@ -258,7 +280,7 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
         raise ValueError(f"{name}: bad geometry R={r} hp={hp} wp={wp} N={n}")
     wt = k_major(w, w2)
     out = torch.empty((r, n), dtype=out_dtype, device=x2d.device)
-    fn, err_str = _kernel(f"yolo_{name}_i8")
+    fn, err_str = _kernel(f"yolo_{name}_{_IN_DTYPES[x2d.dtype]}")
     with torch.cuda.device(x2d.device):
         rc = fn(x2d.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                 0 if residual is None else residual.data_ptr(), float(res_scale),
@@ -280,9 +302,10 @@ def _on_cuda(name, x2d):
 
 def conv1x1_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
                 out_dtype=torch.int8, residual=None, res_scale=1.0):
-    """Pointwise conv on the padded-2D layout: ``x2d`` [R, C] int8, ``w``
-    [C, N] int8, ``scale``/``bias`` [N] float32; returns [R, N] int8 or bf16
-    with zero borders.  A CUDA ``x2d`` runs the kernel or raises; a CPU one
+    """Pointwise conv on the padded-2D layout: ``x2d`` [R, C] int8 or bf16,
+    ``w`` [C, N] of the same dtype, ``scale``/``bias`` [N] float32,
+    ``residual`` [R, N] of the input's dtype or None; returns [R, N] int8 or
+    bf16 with zero borders.  A CUDA ``x2d`` runs the kernel or raises; a CPU one
     runs :func:`conv1x1_p2d_ref`.  ``conv1x1_p2d.launches`` counts kernel
     launches."""
     if not _on_cuda("conv1x1_p2d", x2d):
@@ -318,7 +341,7 @@ def res_block_p2d(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
                   out_dtype=torch.int8, res_scale=1.0):
     """x + leaky(conv3x3(leaky(conv1x1(x)))) with the add fused into the
     3x3's epilogue; ``res_scale`` rescales the identity into the output's
-    quantization domain.  The composition of the two kernels (their plain
+    quantization domain (1 for bf16).  The composition of the two kernels (their plain
     versions on a CPU tensor).  ``res_block_p2d.launches`` counts the blocks
     run on the card, each one launch of either kernel."""
     mid = conv1x1_p2d(x2d, w1, s1, b1, hp, wp, out_dtype=x2d.dtype)

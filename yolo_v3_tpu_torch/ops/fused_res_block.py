@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import _build
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 LEAKY_SLOPE = 0.1
 
@@ -75,18 +76,19 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
 
 
 def fused_res_block_ref(y, w1, b1, w2, b2):
-    """Plain PyTorch version: fp32 convolutions with the kernel's rounding
-    points.  ``y`` [B, H, W, C]; ``w1`` [C, Cmid] or [1, 1, C, Cmid];
+    """Plain PyTorch version: fp32 convolutions (TF32 off) with the kernel's
+    rounding points.  ``y`` [B, H, W, C]; ``w1`` [C, Cmid] or [1, 1, C, Cmid];
     ``w2`` [3, 3, Cmid, C]; returns [B, H, W, C] in ``y.dtype``."""
     w1 = _check_shapes(y, w1, b1, w2, b2)
     dt = y.dtype
     x = y.float().permute(0, 3, 1, 2)                      # NCHW view
     k1 = w1.float().t()[:, :, None, None]                  # [Cmid, C, 1, 1]
-    mid = _leaky(F.conv2d(x, k1) + b1.float()[:, None, None]).to(dt)
-    # padding=1 zero-pads conv1's OUTPUT, as the reference does
     k2 = w2.float().permute(3, 2, 0, 1)                    # OIHW
-    r = _leaky(F.conv2d(mid.float(), k2, padding=1)
-               + b2.float()[:, None, None]).to(dt)
+    with full_fp32():
+        mid = _leaky(F.conv2d(x, k1) + b1.float()[:, None, None]).to(dt)
+        # padding=1 zero-pads conv1's OUTPUT, as the reference does
+        r = _leaky(F.conv2d(mid.float(), k2, padding=1)
+                   + b2.float()[:, None, None]).to(dt)
     return y + r.permute(0, 2, 3, 1)
 
 
@@ -101,10 +103,6 @@ def split_tf32(x: torch.Tensor):
 
     hi = rna(x.float())
     return hi, rna(x.float() - hi)
-
-
-def _version(t: torch.Tensor) -> int:
-    return 0 if t.is_inference() else t._version
 
 
 def _interleave(wk: torch.Tensor) -> torch.Tensor:
@@ -122,8 +120,12 @@ def _pad_to(n: int, m: int) -> int:
 
 def _cached_layout(w1: torch.Tensor, w2: torch.Tensor, attr: str, make):
     """``make(w1, w2)``, cached on ``w1`` as ``attr`` until either weight
-    moves or is written in place."""
-    key = (w1.data_ptr(), _version(w1), w2.data_ptr(), _version(w2))
+    moves or is written in place.  An inference tensor has no version
+    counter, so nothing shows that it was written: with one, the layout is
+    made anew on every call."""
+    if w1.is_inference() or w2.is_inference():
+        return make(w1, w2)
+    key = (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
     cached = getattr(w1, attr, None)
     if cached is None or cached[0] != key:
         cached = (key, *make(w1, w2))

@@ -245,12 +245,13 @@ class _P2dConv(nn.Module):
                                                  device=w.device))
         self.register_buffer("bias", p["b"].float().contiguous())
         self.leaky = leaky
+        # (kernel wrapper, plain version)
+        self.fns = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if self.taps == 9
+                    else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
 
     def forward(self, x2d, hp, wp, plain):
-        fn = {(1, False): FC.conv1x1_p2d, (1, True): FC.conv1x1_p2d_ref,
-              (9, False): FC.conv3x3_p2d, (9, True): FC.conv3x3_p2d_ref}[self.taps, plain]
-        return fn(x2d, self.weight, self.scale, self.bias, hp, wp, leaky=self.leaky,
-                  out_dtype=torch.bfloat16)
+        return self.fns[plain](x2d, self.weight, self.scale, self.bias, hp, wp,
+                               leaky=self.leaky, out_dtype=torch.bfloat16)
 
 
 class _P2dHead(nn.Module):
@@ -318,7 +319,7 @@ class YoloNetFolded(nn.Module):
                     y = blk(y, res_block)
                 if i >= 2:
                     routes.append(y)
-            if isinstance(self.head0, _P2dHead):
+            if self.dtype == torch.bfloat16:
                 return self._p2d_heads(routes, plain)
             c3, c4, c5 = routes
             det0, br0 = self.head0(c5)

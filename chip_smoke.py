@@ -6,15 +6,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; print each kernel's ptxas
+   report (registers, spills) and, for the two ``wgmma`` sources, fail on a
+   ``C75xx`` warning (``fused_res_block``: other than C7519, the
+   ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``) and
+   on SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every
+   ``HGMMA`` (each ``wgmma`` waiting for the one before);
 3. kernel vs plain, with the device time of both (CUDA-graph replay), the
    card's bound for the same work and, where one PyTorch call computes the
    same function, that call's time: the fused residual-block kernel at the 5
    residual-block shapes of YOLOv3-416 at batch 8 in fp32 and bf16 (beside
    cuDNN convs in the working dtype, TF32 off); the bf16 padded-2D kernels
    (conv1x1_p2d, conv3x3_p2d) at every head and up shape of the bf16
-   forward, and their composition res_block_p2d at 26^2, within rtol = atol
-   = 2e-2 (beside the cuDNN bf16 chain, channels-last conv + bias + leaky);
+   forward (with the tile shape the planner picks, and the host time of
+   one launch), and their composition res_block_p2d at 26^2, within rtol =
+   atol = 2e-2 (beside the cuDNN bf16 chain, channels-last conv + bias +
+   leaky);
    the int8 kernels (conv1x1_p2d, conv3x3_p2d, their composition
    res_block_p2d, fused_entry) bit-equal at every shape the int8 forward
    launches them at batch 8;
@@ -36,6 +43,7 @@ the last is the kernel summary as JSON; the last line is
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -55,6 +63,12 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),      # summation order
        torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}  # 2 bf16 ulps
 NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
+# the sources whose kernels run wgmma, and the ptxas warnings each may carry
+# (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
+# registers, which fused_res_block's conv2 has; not a serialization)
+WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",)}
+KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:bf16|i8|f32)_kernel|fused_entry\w*)"
+                         r"I?((?:Li\d+E)*)")
 # Every padded-2D conv the int8 forward launches at 416: (taps, grid H = W,
 # C, N, residual, out) -> launches per forward.  Residual-block convs first
 # (conv1 C -> C/2, conv2 C/2 -> C + residual), then heads, dets and ups.
@@ -111,6 +125,74 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def short_name(mangled):
+    """conv_p2d_bf16_kernel<9,2,128,1> from a mangled kernel name."""
+    m = KERNEL_NAME.search(mangled)
+    if m is None:
+        return mangled[:60]
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def check_build(card, libs):
+    """Phase 2's report: every kernel's registers and spills from ptxas;
+    for the wgmma sources, no unexpected C75xx warning and no serialized
+    wgmma in the SASS (cuobjdump)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from yolo_v3_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    for name, lib in zip(SOURCES, libs):
+        report, kernel, spills = _build.build_log(name), None, ""
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = short_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills = f"spills {m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                log(f"ptxas {name}: {kernel} {m.group(1)} registers, {spills}")
+                kernel = None
+        if name not in WGMMA_SOURCES:
+            continue
+        warns = sorted(set(re.findall(r"\((C75\d\d)\)", report)))
+        log(f"ptxas {name}: C75xx warnings {warns or 'none'} | {card}")
+        bad = [w for w in warns if w not in WGMMA_SOURCES[name]]
+        check(not bad, f"{name}: ptxas warns {bad} (wgmma serialized or misplaced)")
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        counts, kernel = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                kernel = short_name(m.group(1))
+                counts[kernel] = [0, 0]
+            elif kernel and "HGMMA" in line:
+                counts[kernel][0] += 1
+            elif kernel and "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line:
+                counts[kernel][1] += 1
+        for kernel, (hgmma, waits) in counts.items():
+            if hgmma:
+                log(f"sass {name}: {kernel} HGMMA {hgmma}, WARPGROUP.DEPBAR.LE gsb0 0x0 {waits}")
+                check(waits < hgmma, f"{kernel}: every HGMMA waits for the one before")
+        check(any(h for h, _ in counts.values()), f"{name}: no HGMMA in the SASS")
+
+
+def host_us(fn, iters=200):
+    """Host time of one call of ``fn`` (enqueue only: the device runs
+    behind), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def cuda_ms(fn, iters=10, warmup=3):
@@ -410,24 +492,45 @@ def check_bf16_p2d_kernels(card):
         acc["library_ms"] += n * l_ms
         return k_ms
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    host = []
     for (taps, hw, c, n, leaky), count in BF16_CONVS.items():
         x2d = FC.pack_p2d(t(BATCH, hw, hw, c, scale=0.5))
         w = t(*((3, 3, c, n) if taps == 9 else (c, n)), scale=(taps * c) ** -0.5)
         ones, b = torch.ones(n, device="cuda"), t(n, scale=0.1, dtype=torch.float32)
-        _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        rows, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
         fn, ref = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if taps == 9
                    else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
         kw = dict(leaky=leaky, out_dtype=torch.bfloat16)
         got = fn(x2d, w, ones, b, hp, wp, **kw)
         torch.cuda.synchronize()
-        rows = x2d.shape[0]
+        variant = FC.bf16_plan_on_device(rows, c, n, taps)
+        check(variant == FC.plan_bf16(rows, c, n, taps, sms),
+              f"the C planner ({variant}) and plan_bf16 differ at {(taps, hw, c, n)}")
+        wgs, bn, _ = FC.BF16_TILES[variant]
+        stages = FC.bf16_ring_slots(variant, taps)
+        # host time of the wrapper, and of its C launcher alone (ctypes call)
+        out, wt = torch.empty_like(got), FC.k_major(w, w.reshape(taps * c, n))
+        entry = getattr(FC._lib(), f"yolo_{fn.__name__}_bf16")
+        stream = torch.cuda.current_stream().cuda_stream
+        host.append((host_us(lambda: fn(x2d, w, ones, b, hp, wp, **kw)),
+                     host_us(lambda: entry(x2d.data_ptr(), wt.data_ptr(), ones.data_ptr(),
+                                           b.data_ptr(), 0, 1.0, out.data_ptr(), 1, rows, c,
+                                           n, hp, wp, int(leaky), stream))))
         nbytes = 2 * (rows * c + w.numel() + rows * n) + 8 * n
         record(f"{fn.__name__}_bf16", f"[{BATCH},{hw},{hw},{c}]->{n}"
-               f"{'' if leaky else ' no leaky'}", got, ref(x2d, w, ones, b, hp, wp, **kw),
+               f"{'' if leaky else ' no leaky'} tiles {64 * wgs}x{bn}x{stages} slots "
+               f"({FC.bf16_smem_bytes(variant, taps)} B shared) "
+               f"host_us={host[-1][0]:.1f} (C launcher {host[-1][1]:.1f})", got, ref(x2d, w, ones, b, hp, wp, **kw),
                (lambda: fn(x2d, w, ones, b, hp, wp, **kw),
                 lambda: ref(x2d, w, ones, b, hp, wp, **kw),
                 cudnn_conv(x2d, w, b.bfloat16(), BATCH, hw, taps, leaky)), count,
                2 * BATCH * hw * hw * taps * c * n, nbytes)
+
+    wrapper, launcher = np.array(host).T
+    log(f"kernel bf16 p2d host time per launch (enqueue only), mean over the {len(host)} "
+        f"shapes: wrapper {wrapper.mean():.1f} us (min {wrapper.min():.1f}, max "
+        f"{wrapper.max():.1f}), of which the C launcher {launcher.mean():.1f} us | {card}")
 
     hw, c = 26, 512
     y, w1, b1, w2, b2 = block_inputs(hw, c, torch.bfloat16, seed=3)
@@ -720,11 +823,12 @@ def main():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:     # one nvcc per source
-        list(pool.map(_build.build, SOURCES))
+        libs = list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
     log(f"build: {', '.join(SOURCES)} {time.perf_counter() - t0:.2f} s "
         f"(set-up, in parallel) | {card}")
+    check_build(card, libs)
 
     summary = check_kernel(card)
     summary_bf16 = check_bf16_p2d_kernels(card)

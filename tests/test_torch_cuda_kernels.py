@@ -305,6 +305,50 @@ def test_bf16_conv_kernel_matches_plain_ragged(dev, taps):
     _bf16_conv_case(dev, taps, 3, 11, 9, 40, 36, True, residual=True, res_scale=0.7)
 
 
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+def test_bf16_conv_kernel_matches_plain_c72_n255_residual(dev, taps):
+    """C = 72 (a second K slot of 8 channels, the rest zero-filled by TMA)
+    and N = 255 (510-byte rows of out: element stores), with a residual."""
+    _bf16_conv_case(dev, taps, 2, 10, 12, 72, 255, False, residual=True, res_scale=0.7)
+
+
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+def test_bf16_conv_kernel_matches_plain_below_one_tile(dev, taps):
+    """R = 25 rows, fewer than one tile: the 3x3's first taps read rows from
+    -6 on, which TMA fills with zeros, as it does the rows past R."""
+    _bf16_conv_case(dev, taps, 1, 3, 3, 16, 24, True, residual=True, res_scale=0.7)
+
+
+@pytest.mark.parametrize("tiles", range(len(FC.BF16_TILES)))
+@pytest.mark.parametrize("taps,b,h,w,c,n", [
+    (1, 3, 11, 9, 40, 36), (9, 3, 11, 9, 40, 36), (9, 2, 8, 8, 72, 255),
+    (9, 8, 13, 13, 512, 1024), (1, 8, 52, 52, 256, 255), (9, 8, 26, 26, 256, 512),
+])
+def test_bf16_conv_kernel_every_tile_shape(dev, tiles, taps, b, h, w, c, n):
+    """Each tile shape of BF16_TILES, whichever the planner picks, against
+    the plain version."""
+    x2d, wt, s, bias, res = _bf16_conv_inputs(b, h, w, c, n, taps, True, dev)
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    name, ref = (("conv3x3_p2d", FC.conv3x3_p2d_ref) if taps == 9
+                 else ("conv1x1_p2d", FC.conv1x1_p2d_ref))
+    got = FC._launch(name, taps, x2d, wt, s, bias, hp, wp, True, torch.bfloat16, res, 0.7,
+                     tiles=tiles)
+    torch.cuda.synchronize()
+    want = ref(x2d, wt, s, bias, hp, wp, out_dtype=torch.bfloat16, residual=res,
+               res_scale=0.7)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_bf16_planner_on_the_card_matches_plan_bf16(dev):
+    """The C launcher's tile choice is ops/fused_conv.py::plan_bf16 with the
+    card's SM count, at every head and up shape at batch 8 and 1."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for taps, hw, c, n, _ in BF16_HEAD_SHAPES:
+        for b in (8, 1):
+            r, _, _ = FC.p2d_geometry(b, hw, hw)
+            assert FC.bf16_plan_on_device(r, c, n, taps) == FC.plan_bf16(r, c, n, taps, sms)
+
+
 def test_bf16_res_block_matches_plain_and_fused_block(dev):
     """bf16 res_block_p2d at 26^2, C = 512, batch 8: against its plain
     version, and against the fused residual-block kernel (B4) on the same
@@ -340,6 +384,9 @@ def test_bf16_conv_kernel_rejects_bad_operands(dev):
         FC.conv1x1_p2d(x2d[:, :12].contiguous(), wt[:12].contiguous(), s, bias, 6, 6)
     with pytest.raises(TypeError):                 # bf16 scale
         FC.conv1x1_p2d(x2d, wt, s.bfloat16(), bias, 6, 6)
+    with pytest.raises(ValueError):                # no such tile shape
+        FC._launch("conv1x1_p2d", 1, x2d, wt, s, bias, 6, 6, True, torch.bfloat16, None,
+                   1.0, tiles=len(FC.BF16_TILES))
     assert FC.conv1x1_p2d.launches == before
 
 

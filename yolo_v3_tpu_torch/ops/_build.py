@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` holds a kernel and a plain C launcher, compiled by
 ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` inside the package
-(the directory is git-ignored).  The hash covers the source and the flags,
-so an edited source builds anew and an unchanged one loads from the cache.
+(the directory is git-ignored).  The hash covers the source, the headers
+it includes from ``csrc/`` (``#include "..."``, followed recursively) and
+the flags, so an edited source or header builds anew and an unchanged one
+loads from the cache.  nvcc's report (ptxas: registers, spills, shared
+memory, warnings) is kept beside the library as ``<name>-<hash>.log``.
 Nothing here runs at import: the package imports on hosts without nvcc.
 """
 
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,9 +35,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's stderr (the ptxas register, spill and shared-memory report) of each
-# build made in this process, by source name
-BUILD_LOG: Dict[str, str] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -51,12 +53,30 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, of every header it includes with ``#include "..."``
+    (relative to the including file, followed recursively) and of the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [src.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(path.name.encode() + b"\0" + text)
+        todo += [(path.parent / inc).resolve()
+                 for inc in _INCLUDE.findall(text.decode("utf-8", "replace"))]
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists;
-    return the shared library's path.  Raises with nvcc's stderr on failure."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    its headers exists; return the shared library's path.  Raises with
+    nvcc's stderr on failure."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"{name}-{source_digest(src)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,12 +90,18 @@ def build(name: str) -> Path:
             raise RuntimeError(
                 f"nvcc failed building {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    BUILD_LOG[name] = proc.stderr
     return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's report of the build of ``csrc/<name>.cu`` that :func:`build`
+    returns (building it if needed)."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,9 +9,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    one nvcc per source, all started together; print each kernel's ptxas
    report (registers, spills) and, for the two ``wgmma`` sources, fail on a
    ``C75xx`` warning (``fused_res_block``: other than C7519, the
-   ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``) and
-   on SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every
-   ``HGMMA`` (each ``wgmma`` waiting for the one before);
+   ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``), on
+   SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every ``HGMMA``
+   (bf16) or ``IGMMA`` (int8), each ``wgmma`` waiting for the one before,
+   and on a ``conv_p2d`` kernel with no GMMA at all;
 3. kernel vs plain, with the device time of both (CUDA-graph replay), the
    card's bound for the same work and, where one PyTorch call computes the
    same function, that call's time: the fused residual-block kernel at the 5
@@ -24,7 +25,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    leaky);
    the int8 kernels (conv1x1_p2d, conv3x3_p2d, their composition
    res_block_p2d, fused_entry) bit-equal at every shape the int8 forward
-   launches them at batch 8;
+   launches them at batch 8 (the p2d convs with the tile shape the planner
+   picks and the host time of one launch; the 1x1s beside cuBLASLt's int8
+   product alone, ``torch._int_mm``, which has no epilogue);
 4. main paths: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
    ``torch.Generator`` seed 0, written as darknet ``.weights`` and loaded
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
@@ -67,8 +70,11 @@ SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
 # (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
 # registers, which fused_res_block's conv2 has; not a serialization)
 WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",)}
-KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:bf16|i8|f32)_kernel|fused_entry\w*)"
-                         r"I?((?:Li\d+E)*)")
+# a kernel's name, its input type (conv_p2d_kernel's template argument) and
+# its integer template arguments, in a mangled name
+KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:\w+?_)?kernel|fused_entry\w*)"
+                         r"I?(?:N\w*?\d(Bf16In|I8In)E)?((?:Li\d+E)*)")
+IN_TYPES = {"Bf16In": "bf16", "I8In": "i8"}
 # Every padded-2D conv the int8 forward launches at 416: (taps, grid H = W,
 # C, N, residual, out) -> launches per forward.  Residual-block convs first
 # (conv1 C -> C/2, conv2 C/2 -> C + residual), then heads, dets and ups.
@@ -128,18 +134,20 @@ def card_line():
 
 
 def short_name(mangled):
-    """conv_p2d_bf16_kernel<9,2,128,1> from a mangled kernel name."""
+    """conv_p2d_kernel<i8,9,2,128,1> from a mangled kernel name."""
     m = KERNEL_NAME.search(mangled)
     if m is None:
         return mangled[:60]
-    args = re.findall(r"Li(\d+)E", m.group(2))
+    args = ([IN_TYPES[m.group(2)]] if m.group(2) else []) + re.findall(r"Li(\d+)E", m.group(3))
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def check_build(card, libs):
     """Phase 2's report: every kernel's registers and spills from ptxas;
     for the wgmma sources, no unexpected C75xx warning and no serialized
-    wgmma in the SASS (cuobjdump)."""
+    wgmma in the SASS (cuobjdump): per kernel, fewer waits for all wgmma
+    groups than GMMAs (HGMMA bf16, IGMMA int8); every conv_p2d kernel has
+    GMMAs."""
     from torch.utils.cpp_extension import CUDA_HOME
     from yolo_v3_tpu_torch.ops import _build
 
@@ -170,16 +178,22 @@ def check_build(card, libs):
             m = re.search(r"Function : (\S+)", line)
             if m:
                 kernel = short_name(m.group(1))
-                counts[kernel] = [0, 0]
+                counts[kernel] = [0, 0, 0]
             elif kernel and "HGMMA" in line:
                 counts[kernel][0] += 1
-            elif kernel and "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line:
+            elif kernel and "IGMMA" in line:
                 counts[kernel][1] += 1
-        for kernel, (hgmma, waits) in counts.items():
-            if hgmma:
-                log(f"sass {name}: {kernel} HGMMA {hgmma}, WARPGROUP.DEPBAR.LE gsb0 0x0 {waits}")
-                check(waits < hgmma, f"{kernel}: every HGMMA waits for the one before")
-        check(any(h for h, _ in counts.values()), f"{name}: no HGMMA in the SASS")
+            elif kernel and "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line:
+                counts[kernel][2] += 1
+        for kernel, (hgmma, igmma, waits) in counts.items():
+            if name == "conv_p2d":
+                check(hgmma + igmma > 0, f"{kernel}: no GMMA in the SASS")
+            if hgmma + igmma:
+                log(f"sass {name}: {kernel} HGMMA {hgmma}, IGMMA {igmma}, "
+                    f"WARPGROUP.DEPBAR.LE gsb0 0x0 {waits}")
+                check(waits < hgmma + igmma,
+                      f"{kernel}: every GMMA waits for the one before")
+        check(any(h + i for h, i, _ in counts.values()), f"{name}: no GMMA in the SASS")
 
 
 def host_us(fn, iters=200):
@@ -353,6 +367,18 @@ def scale_bias(gen, n, k):
     return m.to("cuda"), (3.0 * torch.randn(n, generator=gen)).to("cuda")
 
 
+def plan_line(rows, c, n, taps, dtype, sms):
+    """The tile shape the C launcher picks for a p2d conv, checked against
+    ``plan_tiles``: ("BMxBNxSLOTS", shared bytes of a block)."""
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+
+    variant = FC.plan_on_device(rows, c, n, taps, dtype)
+    check(variant == FC.plan_tiles(rows, c, n, taps, dtype, sms),
+          f"the C planner ({variant}) and plan_tiles differ at {(taps, rows, c, n, dtype)}")
+    wgs, bn, _ = FC.P2D_TILES[variant]
+    return f"{64 * wgs}x{bn}x{FC.ring_slots(variant, taps)}", FC.smem_bytes(variant, taps)
+
+
 def check_int8_kernels(card):
     """Phase 3, int8: each kernel bit-equal to its plain version at every
     shape the int8 forward launches it at batch 8; returns per-kernel
@@ -377,28 +403,63 @@ def check_int8_kernels(card):
         acc["max_abs_err"] = max(acc["max_abs_err"], err)
         acc["ms"] += n * k_ms
         acc["plain_ms"] += n * p_ms
+        return k_ms
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    host, product = [], dict(ms=0.0, int_mm_ms=0.0, launches=0)
     for (taps, hw, c, n, residual, out), count in INT8_CONVS.items():
         x2d = FC.pack_p2d(i8(gen, (BATCH, hw, hw, c)))
         w = i8(gen, (3, 3, c, n) if taps == 9 else (c, n))
         m, b = scale_bias(gen, n, taps * c)
         res = i8(gen, (x2d.shape[0], n), -127, 128) if residual else None
-        _, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        rows, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
         fn, ref = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if taps == 9
                    else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
         kw = dict(leaky=out == "i8", residual=res, res_scale=0.7,
                   out_dtype=torch.int8 if out == "i8" else torch.bfloat16)
         got = fn(x2d, w, m, b, hp, wp, **kw)
         torch.cuda.synchronize()
-        rows = x2d.shape[0]
+        tiles, shared = plan_line(rows, c, n, taps, torch.int8, sms)
+        # host time of the wrapper, and of its C launcher alone (ctypes call)
+        dst, wt = torch.empty_like(got), FC.k_major(w, w.reshape(taps * c, n))
+        entry = getattr(FC._lib(), f"yolo_{fn.__name__}_i8")
+        host.append((host_us(lambda: fn(x2d, w, m, b, hp, wp, **kw)),
+                     host_us(lambda: entry(x2d.data_ptr(), wt.data_ptr(), m.data_ptr(),
+                                           b.data_ptr(), 0 if res is None else res.data_ptr(),
+                                           0.7, dst.data_ptr(), int(out != "i8"), rows, c,
+                                           n, hp, wp, int(out == "i8"), stream))))
+        what = (f"[{BATCH},{hw},{hw},{c}]->{n} {out}{' +res' if residual else ''} tiles "
+                f"{tiles} slots ({shared} B shared) host_us={host[-1][0]:.1f} (C launcher "
+                f"{host[-1][1]:.1f})")
+        mm_ms = None
+        if taps == 1:
+            # the yardstick of the 1x1: cuBLASLt's int8 product of the same
+            # operands, without the epilogue (where cuBLASLt takes N)
+            try:
+                torch._int_mm(x2d, w)
+                mm_ms = device_ms(lambda: torch._int_mm(x2d, w))
+            except RuntimeError:
+                pass
+            what += f" cuBLASLt int8 product only (no epilogue) {fmt_ms(mm_ms)}"
         nbytes = (rows * c + w.numel() + 8 * n + rows * n * got.element_size()
                   + (rows * n if residual else 0))
-        record(f"{fn.__name__}_int8",
-               f"[{BATCH},{hw},{hw},{c}]->{n} {out}{' +res' if residual else ''}",
-               got, ref(x2d, w, m, b, hp, wp, **kw),
-               lambda: fn(x2d, w, m, b, hp, wp, **kw),
-               lambda: ref(x2d, w, m, b, hp, wp, **kw), count,
-               2 * BATCH * hw * hw * taps * c * n, nbytes)
+        k_ms = record(f"{fn.__name__}_int8", what, got, ref(x2d, w, m, b, hp, wp, **kw),
+                      lambda: fn(x2d, w, m, b, hp, wp, **kw),
+                      lambda: ref(x2d, w, m, b, hp, wp, **kw), count,
+                      2 * BATCH * hw * hw * taps * c * n, nbytes)
+        if mm_ms is not None:
+            product["ms"] += count * k_ms
+            product["int_mm_ms"] += count * mm_ms
+            product["launches"] += count
+
+    wrapper, launcher = np.array(host).T
+    log(f"kernel int8 p2d host time per launch (enqueue only), mean over the {len(host)} "
+        f"shapes: wrapper {wrapper.mean():.1f} us (min {wrapper.min():.1f}, max "
+        f"{wrapper.max():.1f}), of which the C launcher {launcher.mean():.1f} us | {card}")
+    log(f"kernel conv1x1_p2d_int8 beside cuBLASLt int8 product only (no epilogue), the "
+        f"{product['launches']} 1x1 launches it takes (N % 8 == 0): kernel_ms="
+        f"{product['ms']:.4f} int_mm_ms={product['int_mm_ms']:.4f} | {card}")
 
     for (hw, c), count in INT8_RES.items():
         x2d = FC.pack_p2d(i8(gen, (BATCH, hw, hw, c)))
@@ -504,11 +565,7 @@ def check_bf16_p2d_kernels(card):
         kw = dict(leaky=leaky, out_dtype=torch.bfloat16)
         got = fn(x2d, w, ones, b, hp, wp, **kw)
         torch.cuda.synchronize()
-        variant = FC.bf16_plan_on_device(rows, c, n, taps)
-        check(variant == FC.plan_bf16(rows, c, n, taps, sms),
-              f"the C planner ({variant}) and plan_bf16 differ at {(taps, hw, c, n)}")
-        wgs, bn, _ = FC.BF16_TILES[variant]
-        stages = FC.bf16_ring_slots(variant, taps)
+        tiles, shared = plan_line(rows, c, n, taps, torch.bfloat16, sms)
         # host time of the wrapper, and of its C launcher alone (ctypes call)
         out, wt = torch.empty_like(got), FC.k_major(w, w.reshape(taps * c, n))
         entry = getattr(FC._lib(), f"yolo_{fn.__name__}_bf16")
@@ -519,9 +576,9 @@ def check_bf16_p2d_kernels(card):
                                            n, hp, wp, int(leaky), stream))))
         nbytes = 2 * (rows * c + w.numel() + rows * n) + 8 * n
         record(f"{fn.__name__}_bf16", f"[{BATCH},{hw},{hw},{c}]->{n}"
-               f"{'' if leaky else ' no leaky'} tiles {64 * wgs}x{bn}x{stages} slots "
-               f"({FC.bf16_smem_bytes(variant, taps)} B shared) "
-               f"host_us={host[-1][0]:.1f} (C launcher {host[-1][1]:.1f})", got, ref(x2d, w, ones, b, hp, wp, **kw),
+               f"{'' if leaky else ' no leaky'} tiles {tiles} slots ({shared} B shared) "
+               f"host_us={host[-1][0]:.1f} (C launcher {host[-1][1]:.1f})", got,
+               ref(x2d, w, ones, b, hp, wp, **kw),
                (lambda: fn(x2d, w, ones, b, hp, wp, **kw),
                 lambda: ref(x2d, w, ones, b, hp, wp, **kw),
                 cudnn_conv(x2d, w, b.bfloat16(), BATCH, hw, taps, leaky)), count,

@@ -4,11 +4,13 @@ to show that a change leaves them bit-identical.
     (cd <tree> && python3 <this script> out.pt)   # save, from a tree's root
     python3 scripts/kernel_outputs.py a.pt b.pt   # compare two saved files
 
-Saves int8 conv1x1_p2d / conv3x3_p2d (7 shapes, int8 and bf16 out),
-fused_entry and the fp32 and bf16 fused residual block at the 5 YOLOv3-416
-shapes, at batch 8, computed by the ``yolo_v3_tpu_torch`` of the current
-directory on one CUDA device.  Comparing prints each output's verdict and
-exits non-zero unless all are bit-identical.
+Saves int8 conv1x1_p2d / conv3x3_p2d (7 shapes, int8 and bf16 out), bf16
+conv1x1_p2d / conv3x3_p2d (6 shapes), fused_entry and the fp32 and bf16
+fused residual block at the 5 YOLOv3-416 shapes, at batch 8, computed by
+the ``yolo_v3_tpu_torch`` of the current directory on one CUDA device
+through its public wrappers only, so that the script runs in an older tree
+too.  Comparing prints each output's verdict and exits non-zero unless all
+are bit-identical.
 """
 import os
 import sys
@@ -57,6 +59,24 @@ def save(path):
         out[f"int8 {taps} {hw} {c}->{n} {od}"] = fn(
             x2d, w, m, b, hp, wp, leaky=od == "i8", residual=r, res_scale=0.7,
             out_dtype=torch.int8 if od == "i8" else torch.bfloat16)
+    for taps, hw, c, n, res, leaky in [(1, 13, 1024, 512, False, True),
+                                       (9, 13, 512, 1024, False, True),
+                                       (1, 26, 512, 255, False, False),
+                                       (9, 26, 256, 512, True, True),
+                                       (1, 52, 256, 128, False, True),
+                                       (9, 52, 128, 256, False, True)]:
+        def bf(*shape, scale):
+            return (torch.randn(*shape, generator=g) * scale).to("cuda", torch.bfloat16)
+
+        x2d = FC.pack_p2d(bf(8, hw, hw, c, scale=0.5))
+        w = bf(*((3, 3, c, n) if taps == 9 else (c, n)), scale=(taps * c) ** -0.5)
+        b = (0.1 * torch.randn(n, generator=g)).cuda()
+        r = bf(x2d.shape[0], n, scale=1.0) if res else None
+        _, hp, wp = FC.p2d_geometry(8, hw, hw)
+        fn = FC.conv3x3_p2d if taps == 9 else FC.conv1x1_p2d
+        out[f"bf16 {taps} {hw} {c}->{n}"] = fn(
+            x2d, w, torch.ones(n, device="cuda"), b, hp, wp, leaky=leaky, residual=r,
+            out_dtype=torch.bfloat16)
     xb = i8(8, 210, 210, 12, lo=-127, hi=128)
     qs2d = {}
     for name, (kh, kw, cin, cout) in EK.SHAPES.items():

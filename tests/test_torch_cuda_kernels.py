@@ -206,6 +206,82 @@ def test_int8_conv_kernel_rejects_bad_operands(dev):
         FC.conv1x1_p2d(x2d.t().contiguous().t(), wt, s, bias, 6, 6)
 
 
+# every (taps, H = W, C, N) of the int8 forward's padded-2D convs at
+# YOLOv3-416: the 15 of chip_smoke.py's 18 INT8_CONVS once the residual and
+# the output type, which the planner does not read, are left out
+INT8_FORWARD_SHAPES = [
+    (1, 104, 128, 64), (1, 52, 256, 128), (1, 26, 512, 256), (1, 13, 1024, 512),
+    (9, 104, 64, 128), (9, 52, 128, 256), (9, 26, 256, 512), (9, 13, 512, 1024),
+    (1, 26, 768, 256), (1, 52, 384, 128), (1, 13, 1024, 255), (1, 26, 512, 255),
+    (1, 52, 256, 255), (1, 13, 512, 256), (1, 26, 256, 128),
+]
+
+
+@pytest.mark.parametrize("tiles", range(len(FC.P2D_TILES)))
+@pytest.mark.parametrize("taps,b,h,w,c,n,out_dtype", [
+    (1, 1, 5, 7, 4, 8, torch.int8),                # C = 4: padded to 16
+    (9, 3, 11, 9, 40, 36, torch.int8),             # C = 40: padded to 48; N = 36
+    (9, 2, 8, 8, 144, 255, torch.bfloat16),        # a second, mostly empty K slot; N = 255
+    (9, 1, 3, 3, 16, 24, torch.int8),              # R = 25, below one tile
+    (9, 8, 104, 104, 64, 128, torch.int8),         # stage 1's 3x3: half a K slot
+    (1, 8, 104, 104, 128, 64, torch.int8),         # stage 1's 1x1: N = 64
+    (9, 8, 13, 13, 512, 1024, torch.int8),
+    (1, 8, 52, 52, 256, 255, torch.bfloat16),      # a det
+    (1, 8, 26, 26, 768, 256, torch.int8),
+])
+def test_int8_conv_kernel_every_tile_shape(dev, tiles, taps, b, h, w, c, n, out_dtype):
+    """Each tile shape of P2D_TILES with int8 input, whichever the planner
+    picks, bit-equal to the plain version, with a residual."""
+    x2d, wt, s, bias, res = _conv_inputs(b, h, w, c, n, taps, True, dev)
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    name, ref = (("conv3x3_p2d", FC.conv3x3_p2d_ref) if taps == 9
+                 else ("conv1x1_p2d", FC.conv1x1_p2d_ref))
+    leaky = out_dtype == torch.int8
+    got = FC._launch(name, taps, x2d, wt, s, bias, hp, wp, leaky, out_dtype, res, 0.7,
+                     tiles=tiles)
+    torch.cuda.synchronize()
+    want = ref(x2d, wt, s, bias, hp, wp, leaky=leaky, out_dtype=out_dtype, residual=res,
+               res_scale=0.7)
+    assert got.dtype == want.dtype == out_dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_int8_planner_on_the_card_matches_plan_tiles(dev):
+    """The C launcher's tile choice for int8 input is
+    ops/fused_conv.py::plan_tiles with the card's SM count, at every shape
+    of the int8 forward at batch 8 and 1."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for taps, hw, c, n in INT8_FORWARD_SHAPES:
+        for b in (8, 1):
+            r, _, _ = FC.p2d_geometry(b, hw, hw)
+            assert (FC.plan_on_device(r, c, n, taps, torch.int8)
+                    == FC.plan_tiles(r, c, n, taps, torch.int8, sms))
+
+
+@pytest.mark.parametrize("taps", [1, 9], ids=["1x1", "3x3"])
+@pytest.mark.parametrize("c", [4, 40])
+def test_int8_conv_kernel_pads_unaligned_channels(dev, taps, c):
+    """C % 16 != 0 runs the one kernel on channels zero-padded to 16 (the C
+    launcher itself refuses rows that are not 16 bytes), bit-equal to the
+    plain version."""
+    x2d, wt, s, bias, res = _conv_inputs(2, 7, 9, c, 24, taps, True, dev)
+    _, hp, wp = FC.p2d_geometry(2, 7, 9)
+    fn, ref = ((FC.conv1x1_p2d, FC.conv1x1_p2d_ref) if taps == 1
+               else (FC.conv3x3_p2d, FC.conv3x3_p2d_ref))
+    before = fn.launches
+    got = fn(x2d, wt, s, bias, hp, wp, residual=res, res_scale=0.7)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, ref(x2d, wt, s, bias, hp, wp, residual=res, res_scale=0.7))
+    wk = FC.k_major(wt, wt.reshape(taps * c, 24))
+    out = torch.empty_like(got)
+    entry = getattr(FC._lib(), f"yolo_{fn.__name__}_i8")
+    rc = entry(x2d.data_ptr(), wk.data_ptr(), s.data_ptr(), bias.data_ptr(), 0, 1.0,
+               out.data_ptr(), 0, x2d.shape[0], c, 24, hp, wp, 1,
+               torch.cuda.current_stream().cuda_stream)
+    assert rc != 0                                 # cudaErrorInvalidValue: C % 16 != 0
+
+
 def _entry_inputs(b, h, w, dev, seed=0):
     rng = np.random.default_rng(seed)
     xb = _i8(rng, (b, 2 * h + 2, 2 * w + 2, 12), -127, 128).to(dev)
@@ -319,13 +395,13 @@ def test_bf16_conv_kernel_matches_plain_below_one_tile(dev, taps):
     _bf16_conv_case(dev, taps, 1, 3, 3, 16, 24, True, residual=True, res_scale=0.7)
 
 
-@pytest.mark.parametrize("tiles", range(len(FC.BF16_TILES)))
+@pytest.mark.parametrize("tiles", range(len(FC.P2D_TILES)))
 @pytest.mark.parametrize("taps,b,h,w,c,n", [
     (1, 3, 11, 9, 40, 36), (9, 3, 11, 9, 40, 36), (9, 2, 8, 8, 72, 255),
     (9, 8, 13, 13, 512, 1024), (1, 8, 52, 52, 256, 255), (9, 8, 26, 26, 256, 512),
 ])
 def test_bf16_conv_kernel_every_tile_shape(dev, tiles, taps, b, h, w, c, n):
-    """Each tile shape of BF16_TILES, whichever the planner picks, against
+    """Each tile shape of P2D_TILES, whichever the planner picks, against
     the plain version."""
     x2d, wt, s, bias, res = _bf16_conv_inputs(b, h, w, c, n, taps, True, dev)
     _, hp, wp = FC.p2d_geometry(b, h, w)
@@ -340,13 +416,16 @@ def test_bf16_conv_kernel_every_tile_shape(dev, tiles, taps, b, h, w, c, n):
 
 
 def test_bf16_planner_on_the_card_matches_plan_bf16(dev):
-    """The C launcher's tile choice is ops/fused_conv.py::plan_bf16 with the
-    card's SM count, at every head and up shape at batch 8 and 1."""
+    """The C launcher's tile choice for bf16 input is
+    ops/fused_conv.py::plan_tiles with the card's SM count, at every head
+    and up shape at batch 8 and 1."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
     for taps, hw, c, n, _ in BF16_HEAD_SHAPES:
         for b in (8, 1):
             r, _, _ = FC.p2d_geometry(b, hw, hw)
-            assert FC.bf16_plan_on_device(r, c, n, taps) == FC.plan_bf16(r, c, n, taps, sms)
+            assert (FC.plan_on_device(r, c, n, taps, bf16)
+                    == FC.plan_tiles(r, c, n, taps, bf16, sms))
 
 
 def test_bf16_res_block_matches_plain_and_fused_block(dev):
@@ -386,7 +465,7 @@ def test_bf16_conv_kernel_rejects_bad_operands(dev):
         FC.conv1x1_p2d(x2d, wt, s.bfloat16(), bias, 6, 6)
     with pytest.raises(ValueError):                # no such tile shape
         FC._launch("conv1x1_p2d", 1, x2d, wt, s, bias, 6, 6, True, torch.bfloat16, None,
-                   1.0, tiles=len(FC.BF16_TILES))
+                   1.0, tiles=len(FC.P2D_TILES))
     assert FC.conv1x1_p2d.launches == before
 
 

@@ -290,14 +290,18 @@ def test_k_major_follows_in_place_writes(inference):
 
 
 # ---------------------------------------------------------------------------
-# The bf16 kernel's decomposition (csrc/conv_p2d.cu, conv_p2d_bf16_kernel):
-# the planner's tile shape, a persistent grid of blocks walking tiles, and per
-# tile a sum over ring slots of 64 channels, each of TMA boxes: BM rows of
-# x2d (the 3x3: BM + 2 rows at kernel row dy's offset, which its three taps
-# read shifted by 0, 1, 2 rows), zero outside [0, R) and past C; and per tap
-# BN rows of the K-major weight seen as [N][taps][C], zero past N and C.
-# Emulated in float32 and held to the plain version and to the Pallas
-# kernels in interpret mode at the JAX suite's rtol = atol = 2e-2.
+# The kernel's decomposition (csrc/conv_p2d.cu, conv_p2d_kernel), in both
+# input types: the planner's tile shape, a persistent grid of blocks walking
+# tiles, and per tile a sum over ring slots of one 128-byte row of channels
+# (64 bf16, 128 int8), each of TMA boxes: BM rows of x2d (the 3x3: BM + 2
+# rows at kernel row dy's offset, which its three taps read shifted by 0, 1,
+# 2 rows), zero outside [0, R) and past C; and per tap BN rows of the
+# K-major weight seen as [N][taps][C], zero past N and C.  int8 channels
+# that do not make 16-byte rows are first zero-padded to 16 (pad_channels).
+# Emulated with the kernel's accumulator (float32 for bf16; int8 exactly,
+# in float64).  The bf16 mode is held here to the plain version and to the
+# Pallas kernels in interpret mode at the JAX suite's rtol = atol = 2e-2;
+# the int8 mode, bit-equal, in tests/test_torch_conv_p2d_int8.py.
 # ---------------------------------------------------------------------------
 
 # every (taps, H = W, C, N, leaky) of the bf16 forward's heads and up convs at
@@ -316,7 +320,7 @@ def _tile_schedule(r, n, variant, sms=132):
     """Per block of the persistent grid, the (m0, n0) of the tiles it
     computes, in order: block b takes tiles b, b + grid, ...; tile t is rows
     (t % m_tiles) * BM and channels (t // m_tiles) * BN."""
-    wgs, bn, bps = TF.BF16_TILES[variant]
+    wgs, bn, bps = TF.P2D_TILES[variant]
     bm = 64 * wgs
     m_tiles = -(-r // bm)
     tiles = m_tiles * -(-n // bn)
@@ -325,42 +329,52 @@ def _tile_schedule(r, n, variant, sms=132):
             for b in range(grid)]
 
 
-def _box(t, r0, rows, c0, cols):
-    """t[r0:r0+rows, c0:c0+cols] with zeros outside t (negative r0 too), as
-    TMA's out-of-bounds fill gives it."""
-    out = torch.zeros(rows, cols, dtype=torch.float32)
-    lo, hi = max(r0, 0), min(r0 + rows, t.shape[0])
-    if lo < hi and c0 < t.shape[1]:
-        part = t[lo:hi, c0:c0 + cols].float()
-        out[lo - r0:hi - r0, :part.shape[1]] = part
-    return out
-
-
-def _emulate_bf16_kernel(x2d, w, scale, bias, hp, wp, taps, variant, *, leaky=True,
-                         residual=None, res_scale=1.0):
+def _kernel_acc(x2d, w, wp, taps, variant):
+    """The kernel's accumulator [R, N]: its sum slot by slot in its type
+    (int32 for int8, exact; float32 for bf16), over the TMA boxes of every
+    tile (all tiles at once, one product a slot: which block of the
+    persistent grid runs a tile does not change its sum)."""
     r, c = x2d.shape
     wt = TF.k_major(w, TF._w2d(w, c, taps))           # [N, taps * C]
     n = wt.shape[0]
-    wgs, bn, _ = TF.BF16_TILES[variant]
-    bm, kslot, tps = 64 * wgs, TF.BF16_K_SLOT, TF.bf16_taps_per_slot(taps)
-    kpt = -(-c // kslot)
-    acc = torch.zeros(r, n)
-    for block in _tile_schedule(r, n, variant):
-        for m0, n0 in block:
-            tile = torch.zeros(bm, bn)
-            for s in range(taps // tps * kpt):
-                dy, k0 = s // kpt, (s % kpt) * kslot
-                a0 = m0 + (dy - 1) * wp - 1 if taps == 9 else m0
-                a = _box(x2d, a0, bm + tps - 1, k0, kslot)
-                for j in range(tps):
-                    tap = dy * tps + j
-                    b = _box(wt[:, tap * c:(tap + 1) * c], n0, bn, k0, kslot)
-                    tile += a[j:j + bm] @ b.t()
-            rows, cols = min(bm, r - m0), min(bn, n - n0)
-            acc[m0:m0 + rows, n0:n0 + cols] = tile[:rows, :cols]
-    valid = TF.border_mask(r, hp, wp, x2d.device)[:, None]
-    return TF.epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
-                           res_scale=res_scale, valid=valid, out_dtype=torch.bfloat16)
+    x2d, wt = TF.pad_channels(x2d, wt, taps)
+    c = x2d.shape[1]
+    int8 = x2d.dtype == torch.int8
+    acc_dtype = torch.float64 if int8 else torch.float32
+    wgs, bn, _ = TF.P2D_TILES[variant]
+    bm, kslot, tps = 64 * wgs, TF.K_SLOT[x2d.dtype], TF.taps_per_slot(taps)
+    kpt, m_tiles, n_tiles = -(-c // kslot), -(-r // bm), -(-n // bn)
+    # TMA's zero fill: x2d rows outside [0, R) and channels past C; weight
+    # rows past N and channels past C
+    lo = wp + 1
+    xz = torch.zeros(lo + m_tiles * bm + wp + 2, kpt * kslot, dtype=acc_dtype)
+    xz[lo:lo + r, :c] = x2d.to(acc_dtype)
+    wz = torch.zeros(n_tiles * bn, taps, kpt * kslot, dtype=acc_dtype)
+    wz[:n, :, :c] = wt.view(n, taps, c).to(acc_dtype)
+    m0 = torch.arange(m_tiles) * bm
+    acc = torch.zeros(m_tiles, bm, n_tiles * bn, dtype=acc_dtype)
+    for s in range(taps // tps * kpt):
+        dy, k0 = s // kpt, (s % kpt) * kslot
+        # each tile's A box: BM + tps - 1 rows from the tile's first row at
+        # kernel row dy (the 3x3: one pixel left of the tap (dy, 1)); tap j
+        # reads it from its row j, against the tap's B box
+        a0 = m0 + ((dy - 1) * wp - 1 if taps == 9 else 0)
+        box = xz[lo + a0[:, None] + torch.arange(bm + tps - 1), k0:k0 + kslot]
+        a = torch.cat([box[:, j:j + bm] for j in range(tps)], dim=2)
+        b = wz[:, dy * tps:(dy + 1) * tps, k0:k0 + kslot].reshape(-1, tps * kslot)
+        acc += a @ b.t()
+    acc = acc.reshape(m_tiles * bm, n_tiles * bn)[:r, :n]
+    if int8:
+        assert acc.abs().max() < 2 ** 31
+        acc = acc.to(torch.int32)                     # exact: integers below 2^53
+    return acc
+
+
+def _emulate_kernel(x2d, w, scale, bias, hp, wp, taps, variant, **epilogue):
+    """The kernel's output: its accumulator through the plain epilogue."""
+    valid = TF.border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
+    return TF.epilogue_ref(_kernel_acc(x2d, w, wp, taps, variant), scale, bias, valid=valid,
+                           **epilogue)
 
 
 def _check_bf16_emulation(rng, b, h, w, c, n, taps, variant, residual, leaky):
@@ -374,8 +388,9 @@ def _check_bf16_emulation(rng, b, h, w, c, n, taps, variant, residual, leaky):
               res_scale=0.7 if residual else 1.0)
     t16 = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731 (exact: bf16 values)
     with torch.inference_mode(False):
-        got = _emulate_bf16_kernel(t16(x2d), t16(wt), torch.from_numpy(scale),
-                                   torch.from_numpy(bias), hp, wp, taps, variant, **kw)
+        got = _emulate_kernel(t16(x2d), t16(wt), torch.from_numpy(scale),
+                              torch.from_numpy(bias), hp, wp, taps, variant,
+                              out_dtype=torch.bfloat16, **kw)
     ref = (TF.conv3x3_p2d_ref if taps == 9 else TF.conv1x1_p2d_ref)(
         t16(x2d), t16(wt), torch.from_numpy(scale), torch.from_numpy(bias), hp, wp,
         out_dtype=torch.bfloat16, **kw)
@@ -393,11 +408,12 @@ def test_bf16_kernel_emulation_at_head_shapes(rng, taps, hw, c, n, leaky):
     """Every head and up conv of the bf16 forward at batch 1, with the tile
     shape the planner picks for that geometry."""
     r, _, _ = TF.p2d_geometry(1, hw, hw)
-    _check_bf16_emulation(rng, 1, hw, hw, c, n, taps, TF.plan_bf16(r, c, n, taps),
+    _check_bf16_emulation(rng, 1, hw, hw, c, n, taps,
+                          TF.plan_tiles(r, c, n, taps, torch.bfloat16),
                           residual=False, leaky=leaky)
 
 
-@pytest.mark.parametrize("variant", range(len(TF.BF16_TILES)))
+@pytest.mark.parametrize("variant", range(len(TF.P2D_TILES)))
 @pytest.mark.parametrize("b,h,w,c,n,taps,residual", [
     (3, 11, 9, 40, 36, 9, True),    # C % 64 != 0 (zero channel tail), N = 36 (72-byte rows)
     (2, 8, 8, 72, 255, 9, True),    # C = 72 (a second, mostly empty K slot), N = 255
@@ -406,8 +422,25 @@ def test_bf16_kernel_emulation_at_head_shapes(rng, taps, hw, c, n, leaky):
 ])
 def test_bf16_kernel_emulation_edges(rng, variant, b, h, w, c, n, taps, residual):
     """The channel tail, the N edge and taps outside [0, R), with every
-    tile shape of BF16_TILES."""
+    tile shape of P2D_TILES."""
     _check_bf16_emulation(rng, b, h, w, c, n, taps, variant, residual=residual, leaky=True)
+
+
+def _check_planner_coverage(shapes, dtype, batch):
+    for taps, hw, c, n in shapes:
+        r, _, _ = TF.p2d_geometry(batch, hw, hw)
+        v = TF.plan_tiles(r, c, n, taps, dtype)
+        wgs, bn, bps = TF.P2D_TILES[v]
+        cover = np.zeros((r + 64 * wgs, n + bn), np.int32)
+        schedule = _tile_schedule(r, n, v)
+        assert len(schedule) <= 132 * bps
+        for block in schedule:
+            for m0, n0 in block:
+                cover[m0:m0 + 64 * wgs, n0:n0 + bn] += 1
+        assert (cover[:r, :n] == 1).all(), (taps, hw, c, n)
+        assert TF.ring_slots(v, taps) >= 2
+        assert TF.smem_bytes(v, taps) <= TF.SMEM_PER_BLOCK
+        assert bps * (TF.smem_bytes(v, taps) + 1024) <= TF.SMEM_PER_SM
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -416,35 +449,23 @@ def test_bf16_planner_covers_output_and_fits_shared_memory(batch):
     exactly once, the grid stays within the blocks the card holds at once,
     and the ring (at least two slots) and staging fit the shared memory
     (227 KB a block, 228 KB an SM for all its blocks)."""
-    for taps, hw, c, n, _ in BF16_HEAD_SHAPES:
-        r, _, _ = TF.p2d_geometry(batch, hw, hw)
-        v = TF.plan_bf16(r, c, n, taps)
-        wgs, bn, bps = TF.BF16_TILES[v]
-        cover = np.zeros((r + 64 * wgs, n + bn), np.int32)
-        schedule = _tile_schedule(r, n, v)
-        assert len(schedule) <= 132 * bps
-        for block in schedule:
-            for m0, n0 in block:
-                cover[m0:m0 + 64 * wgs, n0:n0 + bn] += 1
-        assert (cover[:r, :n] == 1).all(), (taps, hw, c, n)
-        assert TF.bf16_ring_slots(v, taps) >= 2
-        assert TF.bf16_smem_bytes(v, taps) <= TF.SMEM_PER_BLOCK
-        assert bps * (TF.bf16_smem_bytes(v, taps) + 1024) <= TF.SMEM_PER_SM
+    _check_planner_coverage([s[:4] for s in BF16_HEAD_SHAPES], torch.bfloat16, batch)
 
 
 def test_bf16_planner_picks_the_cheapest_tiles():
-    """plan_bf16 is the argmin of bf16_tiles_cost.  At batch 8 it takes the
+    """plan_tiles is the argmin of tiles_cost.  At batch 8 it takes the
     large tile (128 x 128, one block an SM) where its grid fills the card
     (the 13^2 3x3: 120 tiles; the 26^2 1x1s to N = 256) and the small one
     (64 x 64, two blocks an SM) where a large tile would leave SMs idle (the
     13^2 1x1s: 30 to 60 tiles) or short a second wave (the 52^2 N = 128
     1x1s: 183 tiles)."""
+    bf16 = torch.bfloat16
     for taps, hw, c, n, _ in BF16_HEAD_SHAPES:
         r, _, _ = TF.p2d_geometry(8, hw, hw)
-        costs = [TF.bf16_tiles_cost(v, r, c, n, taps, 132) for v in range(len(TF.BF16_TILES))]
-        assert TF.plan_bf16(r, c, n, taps) == costs.index(min(costs))
+        costs = [TF.tiles_cost(v, r, c, n, taps, 132, bf16) for v in range(len(TF.P2D_TILES))]
+        assert TF.plan_tiles(r, c, n, taps, bf16) == costs.index(min(costs))
     big, small = 0, 1
-    assert TF.BF16_TILES[big][:2] == (2, 128) and TF.BF16_TILES[small][:2] == (1, 64)
+    assert TF.P2D_TILES[big][:2] == (2, 128) and TF.P2D_TILES[small][:2] == (1, 64)
     for (taps, hw, c, n), want in (((9, 13, 512, 1024), big), ((1, 26, 512, 256), big),
                                    ((1, 13, 1024, 512), small), ((1, 52, 256, 128), small)):
-        assert TF.plan_bf16(TF.p2d_geometry(8, hw, hw)[0], c, n, taps) == want
+        assert TF.plan_tiles(TF.p2d_geometry(8, hw, hw)[0], c, n, taps, bf16) == want

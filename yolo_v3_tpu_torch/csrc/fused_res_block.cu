@@ -966,9 +966,10 @@ int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
   const cuuint64_t w2_dims[2] = {(cuuint64_t)K2p, (cuuint64_t)C}, w2_strides[1] = {K2p * 2ull};
   const cuuint32_t w1_box[2] = {BK, BN1}, w2_box[2] = {BK, (cuuint32_t)(2 * plan.variant)};
   CUtensorMap y_map, w1_map, w2_map;
-  if ((e = tensor_map(&y_map, y, 4, y_dims, y_strides, y_box)) != 0 ||
-      (e = tensor_map(&w1_map, w1k, 2, w1_dims, w1_strides, w1_box)) != 0 ||
-      (e = tensor_map(&w2_map, w2k, 2, w2_dims, w2_strides, w2_box)) != 0)
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if ((e = tensor_map(&y_map, bf, y, 4, y_dims, y_strides, y_box)) != 0 ||
+      (e = tensor_map(&w1_map, bf, w1k, 2, w1_dims, w1_strides, w1_box)) != 0 ||
+      (e = tensor_map(&w2_map, bf, w2k, 2, w2_dims, w2_strides, w2_box)) != 0)
     return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(

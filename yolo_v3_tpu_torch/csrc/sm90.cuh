@@ -103,13 +103,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (bf16 in, fp32 accumulate)
+// wgmma (bf16 in, fp32 accumulate; int8 in, int32 accumulate)
 // ---------------------------------------------------------------------------
 
-// wgmma's descriptor of a K-major operand as TMA stages it: rows of 64
-// bf16 (128 bytes), the 16-byte chunk j of row r stored at chunk j ^ (r % 8)
-// (the 128-byte swizzle), 8-row groups 1024 bytes apart, starting at p, a
-// row of a 1024-byte-aligned buffer; +2 moves it 16 K (32 bytes) on.  The
+// wgmma's descriptor of a K-major operand as TMA stages it: rows of 128
+// bytes (64 bf16 or 128 int8), the 16-byte chunk j of row r stored at chunk
+// j ^ (r % 8) (the 128-byte swizzle), 8-row groups 1024 bytes apart,
+// starting at p, a row of a 1024-byte-aligned buffer; +2 moves it 32 bytes
+// on (one wgmma's K: 16 bf16 or 32 int8).  The
 // swizzle follows the shared-memory address itself, so p may be any row,
 // not only the first of an 8-row group, with the base offset left at 0
 // (on the H100, setting it to the row's place in the group read wrong
@@ -139,6 +140,7 @@ __device__ __forceinline__ void wgmma_wait() {
 // move their uses across this point, nor reuse them before it.
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
 __device__ __forceinline__ void fence_reg(unsigned& r) { asm volatile("" : "+r"(r) :: "memory"); }
+__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r) :: "memory"); }
 template <typename T, int N>
 __device__ __forceinline__ void fence_regs(T (&r)[N]) {
 #pragma unroll
@@ -242,10 +244,55 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The int8 forms: d[64 x N] += A[64 x 32] @ B[32 x N], s8 operands both in
+// shared memory, K-major (the only layout wgmma takes for 8-bit types, so
+// the instruction has no transpose immediates, and no scale-a/b either:
+// scale-d alone), int32 accumulator in the same thread layout as above.
+__device__ __forceinline__ void wgmma_ss_n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 32) wgmma_ss_n32(d, da, db);
   else if constexpr (N == 64) wgmma_ss_n64(d, da, db);
+  else wgmma_ss_n128(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 64 || N == 128, "int8 wgmma: N = 64 or 128");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db);
   else wgmma_ss_n128(d, da, db);
 }
 
@@ -260,9 +307,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const unsigned (&a)[
 // Host: TMA descriptors
 // ---------------------------------------------------------------------------
 
-// A TMA descriptor of a bf16 tensor: `rank` dimensions (innermost first),
-// byte strides of dimensions 1.., boxes of `box`, 128-byte swizzled (the
-// layout wgmma_desc describes), out-of-bounds elements read as zeros.
+// A TMA descriptor of a tensor of `type` (bf16, or UINT8 for int8: TMA only
+// copies bytes, and its zero fill is int8's 0): `rank` dimensions
+// (innermost first), byte strides of dimensions 1.., boxes of `box`,
+// 128-byte swizzled (the layout wgmma_desc describes), out-of-bounds
+// elements read as zeros.
 // cuTensorMapEncodeTiled is looked up through the runtime
 // (cudaGetDriverEntryPoint), so the library links against nothing else.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -270,8 +319,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
+int tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   static EncodeTiled encode = nullptr;
   static std::once_flag once;
   std::call_once(once, [] {
@@ -283,7 +332,7 @@ int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* d
   });
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

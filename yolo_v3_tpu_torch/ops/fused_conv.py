@@ -21,13 +21,16 @@ fused multiply-add)::
     y = 0 on border rows;    int8: clip(round_half_even(y), -127, 127)
                              bf16: round to nearest even
 
-:func:`conv1x1_p2d` and :func:`conv3x3_p2d` launch the CUDA kernels
-(``csrc/conv_p2d.cu``: int8 input on ``mma.sync``, bf16 input on ``wgmma``
-fed by TMA) for a CUDA tensor and use their plain versions (``*_ref``) for
-a CPU tensor.  The bf16 mode serves the float model's heads
+:func:`conv1x1_p2d` and :func:`conv3x3_p2d` launch the CUDA kernel
+(``csrc/conv_p2d.cu``: ``wgmma`` fed by TMA, one kernel in two input
+types) for a CUDA tensor and use their plain versions (``*_ref``) for a
+CPU tensor.  The int8 mode serves the int8 model (``models/quantized.py``);
+int8 channels that do not make 16-byte rows (C % 16 != 0, no model shape)
+are zero-padded to the next multiple of 16 for TMA, which leaves the int32
+sum unchanged.  The bf16 mode serves the float model's heads
 (``models/darknet.py``) with ``scale`` = 1, so that conv, bias and leaky
-round once, as the reference's ``_conv_bias_leaky`` does.  The bf16
-kernel's tile shape is picked per shape by :func:`plan_bf16`, which the C
+round once, as the reference's ``_conv_bias_leaky`` does.  The tile shape
+is picked per shape and input type by :func:`plan_tiles`, which the C
 launcher mirrors.
 
 :func:`conv_i8_nhwc` is the plain NHWC int8 convolution (explicit im2col +
@@ -209,78 +212,97 @@ def conv_i8_nhwc(x, w, scale, bias, *, stride=1,
 
 
 # ---------------------------------------------------------------------------
-# The bf16 kernel's tiles (csrc/conv_p2d.cu: TILES, plan_bf16)
+# The kernel's tiles (csrc/conv_p2d.cu: TILES, plan)
 # ---------------------------------------------------------------------------
 
 # (consumer warpgroups, BN, blocks per SM): a block computes a
 # (64 * warpgroups) x BN tile of out
-BF16_TILES = ((2, 128, 1), (1, 64, 2))
-BF16_K_SLOT = 64        # channels per ring slot: one 128-byte row of an operand
-_EPI_LD = 144           # bytes per staged epilogue row (64 bf16 + 16)
-_L2_BYTES_PER_CLOCK = 64  # the planner's model: bytes into an SM a clock
-_EPI_CLOCKS_X16 = 3       # ... and 16 x the clocks of one output's epilogue
+P2D_TILES = ((2, 128, 1), (1, 64, 2))
+_ROW = 128              # bytes per row of a staged operand (the 128-byte swizzle)
+# channels per ring slot: one 128-byte row of an operand
+K_SLOT = {torch.bfloat16: 64, torch.int8: 128}
+# the planner's rates per input type (csrc/conv_p2d.cu: Bf16In, I8In):
+# tensor-core MACs a clock an SM, bytes into an SM a clock, 16 x the clocks
+# of one output's epilogue
+PLAN_RATES = {torch.bfloat16: (2048, 64, 3), torch.int8: (4096, 64, 3)}
+_EPI_LD = 144           # bytes per staged epilogue row (128 + 16)
 SMEM_PER_SM = 233472    # the H100's shared memory per SM (228 KB)
 SMEM_PER_BLOCK = 232448  # ... of which one block may use (227 KB)
 
 
-def bf16_taps_per_slot(taps: int) -> int:
+def taps_per_slot(taps: int) -> int:
     """The 3x3 stages the three taps of one kernel row per ring slot (one A
     box of BM + 2 rows serves all three); the 1x1 its one tap."""
     return 3 if taps == 9 else 1
 
 
 def _slot_bytes(variant: int, taps: int) -> int:
-    wgs, bn, _ = BF16_TILES[variant]
+    """Bytes of one ring slot: the same in both input types."""
+    wgs, bn, _ = P2D_TILES[variant]
     a_rows = 64 * wgs + (8 if taps == 9 else 0)
-    return (a_rows + bf16_taps_per_slot(taps) * bn) * BF16_K_SLOT * 2
+    return (a_rows + taps_per_slot(taps) * bn) * _ROW
 
 
 def _fixed_smem(variant: int) -> int:
     """1024 bytes of alignment slack, each consumer warp's 16-row epilogue
     staging and the ring's barriers (at most 8 slots)."""
-    return 1024 + 4 * BF16_TILES[variant][0] * 16 * _EPI_LD + 128
+    return 1024 + 4 * P2D_TILES[variant][0] * 16 * _EPI_LD + 128
 
 
-def bf16_ring_slots(variant: int, taps: int) -> int:
-    """Ring slots of the bf16 kernel: as many as the shared memory of one of
+def ring_slots(variant: int, taps: int) -> int:
+    """Ring slots of the kernel: as many as the shared memory of one of
     ``bps`` blocks of an SM holds beside the fixed part, at most 8."""
-    bps = BF16_TILES[variant][2]
+    bps = P2D_TILES[variant][2]
     budget = SMEM_PER_BLOCK if bps == 1 else SMEM_PER_SM // bps - 1024
     return min(8, (budget - _fixed_smem(variant)) // _slot_bytes(variant, taps))
 
 
-def bf16_smem_bytes(variant: int, taps: int) -> int:
-    """Dynamic shared memory of one block of the bf16 kernel."""
-    return _fixed_smem(variant) + bf16_ring_slots(variant, taps) * _slot_bytes(variant, taps)
+def smem_bytes(variant: int, taps: int) -> int:
+    """Dynamic shared memory of one block of the kernel."""
+    return _fixed_smem(variant) + ring_slots(variant, taps) * _slot_bytes(variant, taps)
 
 
-def bf16_tiles_cost(variant: int, r: int, c: int, n: int, taps: int, sms: int) -> int:
-    """The planner's cost of one launch with ``BF16_TILES[variant]``, in SM
-    clocks: per ring slot, the larger of the tensor-core time (BM * BN * 64
-    * taps-per-slot MACs at 2,048 a clock) and the time to bring its bytes
-    into the SM (64 a clock); the persistent grid gives each SM ceil(grid /
-    sms) blocks of ceil(tiles / grid) tiles, which share its tensor cores;
-    each tile's epilogue (3/16 clock an output) overlaps the other blocks.
-    The constants are fitted to the tile shapes' times on an H100 (PERF.md)."""
-    wgs, bn, bps = BF16_TILES[variant]
-    bm, tps = 64 * wgs, bf16_taps_per_slot(taps)
+def tiles_cost(variant: int, r: int, c: int, n: int, taps: int, sms: int,
+               dtype: torch.dtype) -> int:
+    """The planner's cost of one launch with ``P2D_TILES[variant]`` for
+    input of ``dtype``, in SM clocks: per ring slot, the larger of the
+    tensor-core time (BM * BN * K_SLOT * taps-per-slot MACs at the input
+    type's rate) and the time to bring its bytes into the SM; the persistent
+    grid gives each SM ceil(grid / sms) blocks of ceil(tiles / grid) tiles,
+    which share its tensor cores; each tile's epilogue overlaps the other
+    blocks.  The rates (:data:`PLAN_RATES`) are fitted to the tile shapes'
+    times on an H100 (PERF.md)."""
+    wgs, bn, bps = P2D_TILES[variant]
+    macs, bytes_per_clock, epi_x16 = PLAN_RATES[dtype]
+    bm, tps, kslot = 64 * wgs, taps_per_slot(taps), K_SLOT[dtype]
     tiles = -(-r // bm) * -(-n // bn)
-    steps = taps // tps * -(-c // BF16_K_SLOT)
+    steps = taps // tps * -(-c // kslot)
     grid = min(tiles, sms * bps)
-    slot = max(bm * bn * BF16_K_SLOT * tps // 2048,
-               _slot_bytes(variant, taps) // _L2_BYTES_PER_CLOCK)
+    slot = max(bm * bn * kslot * tps // macs, _slot_bytes(variant, taps) // bytes_per_clock)
     per_block = -(-tiles // grid)
-    return (-(-grid // sms) * per_block * steps * slot
-            + per_block * bm * bn * _EPI_CLOCKS_X16 // 16)
+    return -(-grid // sms) * per_block * steps * slot + per_block * bm * bn * epi_x16 // 16
 
 
-def plan_bf16(r: int, c: int, n: int, taps: int, sms: int = 132) -> int:
-    """The index of :data:`BF16_TILES` that the bf16 kernel runs [R, C] @
-    [taps*C, N] with on a card of ``sms`` SMs: the cheapest by
-    :func:`bf16_tiles_cost`, the first on a tie (the C launcher's
-    ``plan_bf16``)."""
-    costs = [bf16_tiles_cost(v, r, c, n, taps, sms) for v in range(len(BF16_TILES))]
+def plan_tiles(r: int, c: int, n: int, taps: int, dtype: torch.dtype,
+               sms: int = 132) -> int:
+    """The index of :data:`P2D_TILES` that the kernel runs [R, C] @ [taps*C,
+    N] with, for input of ``dtype`` on a card of ``sms`` SMs: the cheapest
+    by :func:`tiles_cost`, the first on a tie (the C launcher's ``plan``)."""
+    costs = [tiles_cost(v, r, c, n, taps, sms, dtype) for v in range(len(P2D_TILES))]
     return costs.index(min(costs))
+
+
+def pad_channels(x2d: torch.Tensor, wt: torch.Tensor, taps: int):
+    """``x2d`` [R, C] and the K-major weight ``wt`` [N, taps*C] as the
+    kernel reads them: int8 channels zero-padded to the next multiple of 16
+    where C is not one (TMA loads rows of 16 bytes; the zeros add nothing to
+    the int32 sum); bf16 as they are (the wrapper rejects C % 8 != 0)."""
+    c = x2d.shape[1]
+    if x2d.dtype != torch.int8 or c % 16 == 0:
+        return x2d, wt
+    cp, n = -(-c // 16) * 16, wt.shape[0]
+    return (F.pad(x2d, (0, cp - c)),
+            F.pad(wt.view(n, taps, c), (0, cp - c)).view(n, taps * cp))
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +318,9 @@ def _lib():
     lib = _build.load("conv_p2d")
     signatures = {f"yolo_conv{k}_p2d_{t}": _LAUNCH_ARGS for k in ("1x1", "3x3")
                   for t in ("i8", "bf16")}
-    # the forced-tiles entry takes (taps, variant) first
-    signatures["yolo_conv_p2d_bf16_tiles"] = [ctypes.c_int] * 2 + _LAUNCH_ARGS
-    signatures["yolo_conv_p2d_bf16_plan"] = [ctypes.c_int] * 4
+    # the forced-tiles entry takes (is_i8, taps, variant) first
+    signatures["yolo_conv_p2d_tiles"] = [ctypes.c_int] * 3 + _LAUNCH_ARGS
+    signatures["yolo_conv_p2d_plan"] = [ctypes.c_int] * 5
     for name, args in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
@@ -311,12 +333,13 @@ def _error(rc: int) -> str:
     return _lib().yolo_cuda_error_string(rc).decode()
 
 
-def bf16_plan_on_device(r: int, c: int, n: int, taps: int) -> int:
-    """The index of :data:`BF16_TILES` that the C launcher picks for this
-    shape on the current CUDA device (the card's own :func:`plan_bf16`)."""
-    v = _lib().yolo_conv_p2d_bf16_plan(r, c, n, taps)
+def plan_on_device(r: int, c: int, n: int, taps: int, dtype: torch.dtype) -> int:
+    """The index of :data:`P2D_TILES` that the C launcher picks for this
+    shape and input type on the current CUDA device (the card's own
+    :func:`plan_tiles`)."""
+    v = _lib().yolo_conv_p2d_plan(int(dtype == torch.int8), r, c, n, taps)
     if v < 0:
-        raise RuntimeError(f"bf16 p2d plan failed: {_error(-v)}")
+        raise RuntimeError(f"p2d plan failed: {_error(-v)}")
     return v
 
 
@@ -338,9 +361,10 @@ def k_major(w: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
 
 def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
             residual, res_scale, tiles=None):
-    """Check the operands of a CUDA launch and run the kernel; for bf16
-    input, ``tiles`` (an index of :data:`BF16_TILES`) overrides the
-    planner's tile shape."""
+    """Check the operands of a CUDA launch and run the kernel; ``tiles``
+    (an index of :data:`P2D_TILES`) overrides the planner's tile shape.
+    int8 channels that do not make 16-byte rows are zero-padded to a
+    multiple of 16 (x2d and the K-major weight; an exact int32 sum)."""
     if x2d.dtype not in _IN_DTYPES:
         raise TypeError(f"{name}: the CUDA kernel takes int8 or bfloat16 input, got "
                         f"{x2d.dtype}")
@@ -356,10 +380,8 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
     if x2d.dtype == torch.bfloat16 and c % 8:
         raise ValueError(f"{name}: the bf16 kernel loads x2d by TMA in 16-byte rows: "
                          f"C must be a multiple of 8, got {c}")
-    if tiles is not None and (x2d.dtype != torch.bfloat16
-                              or not 0 <= tiles < len(BF16_TILES)):
-        raise ValueError(f"{name}: tiles={tiles} needs bf16 input and an index of "
-                         f"BF16_TILES")
+    if tiles is not None and not 0 <= tiles < len(P2D_TILES):
+        raise ValueError(f"{name}: tiles={tiles} is not an index of P2D_TILES")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"{name}: scale and bias must be float32")
     if tuple(scale.shape) != (n,) or tuple(bias.shape) != (n,):
@@ -382,16 +404,16 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
         raise ValueError(f"{name}: x2d must start on a 16-byte boundary")
     if hp < 3 or wp < 3 or r <= 0 or n <= 0:
         raise ValueError(f"{name}: bad geometry R={r} hp={hp} wp={wp} N={n}")
-    wt = k_major(w, w2)
+    x2d, wt = pad_channels(x2d, k_major(w, w2), taps)
     out = torch.empty((r, n), dtype=out_dtype, device=x2d.device)
     args = (x2d.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             0 if residual is None else residual.data_ptr(), float(res_scale),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), r, c, n, hp, wp,
+            out.data_ptr(), int(out_dtype == torch.bfloat16), r, x2d.shape[1], n, hp, wp,
             int(leaky), torch.cuda.current_stream(x2d.device).cuda_stream)
     if tiles is None:
         fn = getattr(_lib(), f"yolo_{name}_{_IN_DTYPES[x2d.dtype]}")
     else:
-        fn, args = _lib().yolo_conv_p2d_bf16_tiles, (taps, tiles) + args
+        fn, args = _lib().yolo_conv_p2d_tiles, (int(x2d.dtype == torch.int8), taps, tiles) + args
     with torch.cuda.device(x2d.device):
         rc = fn(*args)
     if rc != 0:

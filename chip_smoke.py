@@ -7,12 +7,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``,
    one nvcc per source, all started together; print each kernel's ptxas
-   report (registers, spills) and, for the two ``wgmma`` sources, fail on a
-   ``C75xx`` warning (``fused_res_block``: other than C7519, the
+   report (registers, spills) and, for the three ``wgmma`` sources, fail on
+   a ``C75xx`` warning (``fused_res_block``: other than C7519, the
    ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``), on
    SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every ``HGMMA``
    (bf16) or ``IGMMA`` (int8), each ``wgmma`` waiting for the one before,
-   and on a ``conv_p2d`` kernel with no GMMA at all;
+   and on a ``conv_p2d`` or ``fused_entry`` kernel with no GMMA at all;
 3. kernel vs plain, with the device time of both (CUDA-graph replay), the
    card's bound for the same work and, where one PyTorch call computes the
    same function, that call's time: the fused residual-block kernel at the 5
@@ -69,10 +69,10 @@ SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
 # the sources whose kernels run wgmma, and the ptxas warnings each may carry
 # (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
 # registers, which fused_res_block's conv2 has; not a serialization)
-WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",)}
+WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",), "fused_entry": ()}
 # a kernel's name, its input type (conv_p2d_kernel's template argument) and
 # its integer template arguments, in a mangled name
-KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:\w+?_)?kernel|fused_entry\w*)"
+KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:\w+?_)?kernel|fused_entry(?:_kernel)?)"
                          r"I?(?:N\w*?\d(Bf16In|I8In)E)?((?:Li\d+E)*)")
 IN_TYPES = {"Bf16In": "bf16", "I8In": "i8"}
 # Every padded-2D conv the int8 forward launches at 416: (taps, grid H = W,
@@ -186,7 +186,7 @@ def check_build(card, libs):
             elif kernel and "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line:
                 counts[kernel][2] += 1
         for kernel, (hgmma, igmma, waits) in counts.items():
-            if name == "conv_p2d":
+            if name in ("conv_p2d", "fused_entry"):
                 check(hgmma + igmma > 0, f"{kernel}: no GMMA in the SASS")
             if hgmma + igmma:
                 log(f"sass {name}: {kernel} HGMMA {hgmma}, IGMMA {igmma}, "
@@ -485,6 +485,16 @@ def check_int8_kernels(card):
     got = EK.fused_entry(xb, qs2d, 0.6)
     torch.cuda.synchronize()
     h = got.shape[1]                     # 104: the stem runs at 2h, the rest at h
+    geo = EK.plan_on_device(BATCH, h, h)
+    mirror = EK.plan_entry(BATCH, h, h, sms)
+    check(all(geo[k] == mirror[k] for k in ("strip", "step", "band"))
+          and geo["smem"] == EK.SMEM_BYTES,
+          f"fused_entry: the C planner {geo} and plan_entry {mirror} differ")
+    log(f"kernel fused_entry_int8 geometry at [{BATCH},{h},{h}]: strips of {geo['strip']} "
+        f"output columns, bands of {geo['band']} rows, {geo['step']} rows a step "
+        f"({mirror['steps']} steps a band), clusters of 1 (no multicast), {mirror['units']} "
+        f"work items, {geo['smem']} B shared a block (registers and spills: the ptxas lines "
+        f"above) | {card}")
     ops = sum(2 * BATCH * (2 * h if name == "stem" else h) ** 2 * kh * kw_ * cin * cout
               for name, (kh, kw_, cin, cout) in EK.SHAPES.items())
     nbytes = (xb.numel() + got.numel()
@@ -921,6 +931,9 @@ def main():
                          launches=counts[name], **measured[f"{name}_{mode}"])
             if name == "res_block_p2d":
                 entry["composition_of"] = [f"conv1x1_p2d_{mode}", f"conv3x3_p2d_{mode}"]
+            if name == "fused_entry":
+                entry["design"] = ("row-streaming strip walk, wgmma s8 on swizzled row rings, "
+                                   "weights by TMA from a producer warp")
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

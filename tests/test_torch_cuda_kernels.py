@@ -293,16 +293,61 @@ def _entry_inputs(b, h, w, dev, seed=0):
     return xb, qs2d
 
 
-@pytest.mark.parametrize("b,h,w", [(2, 24, 24), (1, 13, 21), (8, 104, 104)])
+# the first three since the kernel was ported; then batch 1, 8 and 16 at the
+# forward's h = w = 104, its half, the DIM-96 fixture's 24, and ragged shapes
+# (13 x 21: one strip narrower than the strip width; 7 x 40: a second strip
+# of 14 columns)
+ENTRY_SHAPES = [(2, 24, 24), (1, 13, 21), (8, 104, 104)] + [
+    (b, h, w) for b in (1, 8, 16)
+    for h, w in ((24, 24), (13, 21), (104, 104), (52, 52), (7, 40))
+    if (b, h, w) != (8, 104, 104)]
+
+
+def _check_entry(xb, qs2d, got):
+    torch.cuda.synchronize(xb.device)
+    want = EK.fused_entry_ref(xb, qs2d, 0.6)
+    b, hb, wb, _ = xb.shape
+    assert got.shape == (b, (hb - 2) // 2, (wb - 2) // 2, 128)
+    assert torch.equal(got, want), (got.int() - want.int()).abs().max()
+
+
+@pytest.mark.parametrize("b,h,w", ENTRY_SHAPES)
 def test_fused_entry_kernel_matches_plain(dev, b, h, w):
+    """The planner's geometry, one launch, bit-equal to the plain version."""
     xb, qs2d = _entry_inputs(b, h, w, dev)
     before = EK.fused_entry.launches
     got = EK.fused_entry(xb, qs2d, 0.6)
-    torch.cuda.synchronize()
+    _check_entry(xb, qs2d, got)
     assert EK.fused_entry.launches == before + 1
-    want = EK.fused_entry_ref(xb, qs2d, 0.6)
-    assert got.shape == (b, h, w, 128)
-    assert torch.equal(got, want), (got.int() - want.int()).abs().max()
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 24, 24), (8, 104, 104)])
+@pytest.mark.parametrize("band", [1, 2, 3, 5, 13, 26, 0])
+def test_fused_entry_kernel_every_geometry(dev, b, h, w, band):
+    """Bands of 1, 2, 3, 5, 13, 26 rows and the whole height (0: h),
+    forced through the wrapper's launcher, whatever the planner picks."""
+    xb, qs2d = _entry_inputs(b, h, w, dev, seed=1)
+    _check_entry(xb, qs2d, EK._launch(xb, qs2d, 0.6, band=min(band or h, h)))
+
+
+def test_fused_entry_kernel_on_every_device(dev):
+    """A launch on each card in turn (the kernel's shared-memory limit holds
+    only for the device it was raised on), bit-equal to the plain version."""
+    for i in range(torch.cuda.device_count()):
+        xb, qs2d = _entry_inputs(1, 13, 21, torch.device("cuda", i))
+        _check_entry(xb, qs2d, EK.fused_entry(xb, qs2d, 0.6))
+
+
+def test_fused_entry_planner_on_the_card_matches_plan_entry(dev):
+    """The C launcher's geometry is ops/entry_kernel.py::plan_entry with the
+    card's SM count, at the int8 forward's shape and others."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, h, w in [(8, 104, 104), (1, 104, 104), (16, 104, 104), (8, 52, 52), (2, 24, 24),
+                    (1, 13, 21), (3, 7, 40)]:
+        geo, mirror = EK.plan_on_device(b, h, w), EK.plan_entry(b, h, w, sms)
+        assert {k: geo[k] for k in ("strip", "step", "band")} == {
+            k: mirror[k] for k in ("strip", "step", "band")}
+        assert geo["smem"] == EK.SMEM_BYTES
 
 
 def test_fused_entry_kernel_rejects_bad_operands(dev):
@@ -314,6 +359,10 @@ def test_fused_entry_kernel_rejects_bad_operands(dev):
     bad = dict(qs2d, stem=dict(qs2d["stem"], w=qs2d["stem"]["w"].float()))
     with pytest.raises(ValueError):
         EK.fused_entry(xb, bad, 0.6)
+    with pytest.raises(ValueError):                # a band taller than h = 8
+        EK._launch(xb, qs2d, 0.6, band=9)
+    with pytest.raises(ValueError):
+        EK._launch(xb, qs2d, 0.6, band=0)
 
 
 # ---------------------------------------------------------------------------

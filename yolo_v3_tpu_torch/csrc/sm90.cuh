@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the package's wgmma kernels
-// (fused_res_block.cu, conv_p2d.cu): mbarrier rings, TMA tile loads, wgmma
-// with its shared-memory descriptors and fences, cp.async, and the host's
-// tensor-map encoding.  Each .cu file includes it once; everything here is
-// internal to that file's library.
+// (fused_res_block.cu, conv_p2d.cu, fused_entry.cu): mbarrier rings, TMA
+// tile loads, warpgroup register budgets, wgmma with its shared-memory
+// descriptors and fences, cp.async, and the host's tensor-map encoding.
+// Each .cu file includes it once; everything here is internal to that
+// file's library.
 
 #pragma once
 
@@ -73,6 +74,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (done) return;
     if (clock64() - start > (1ll << 33)) __trap();
   }
+}
+
+// Move this warpgroup's register budget to R a thread (warp specialisation:
+// a producer warpgroup gives registers up, the consumers take them).  Every
+// warp of the warpgroup executes it.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// Order this thread's generic-proxy writes to shared memory (st.shared)
+// before later async-proxy reads of them (wgmma, TMA); a barrier among the
+// writers and the readers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // TMA: the box at the given coordinates (innermost first; out-of-bounds

@@ -92,6 +92,31 @@ def test_int8_kernel_emulation_at_forward_shapes(rng, taps, hw, c, n, residual, 
                           TF.plan_tiles(r, c, n, taps, torch.int8), residual, out)
 
 
+# stage 0's residual block in a quantized tree without space-to-depth:
+# 208^2, conv1 C 64 -> N 32, conv2 C 32 -> N 64 (32-byte rows, N = 32 below
+# either tile's width)
+STAGE0_SHAPES = [(1, 208, 64, 32, False, "i8"), (9, 208, 32, 64, True, "i8")]
+
+
+@pytest.mark.parametrize("taps,hw,c,n,residual,out", STAGE0_SHAPES,
+                         ids=["1x1-208-64-32", "3x3-208-32-64-res"])
+def test_int8_kernel_emulation_at_stage0_of_a_tree_without_s2d(rng, taps, hw, c, n,
+                                                               residual, out):
+    """The stage-0 convs at batch 1 with the planner's tile: C = 32 needs
+    no channel padding (16-byte rows) and fills a quarter of a 128-channel
+    slot, N = 32 half of a 64-wide tile (the weight box zero-fills the rest
+    and the epilogue stores N columns); the planner covers them at batch 1
+    and 8 within the shared memory."""
+    r, _, _ = TF.p2d_geometry(1, hw, hw)
+    x2d = torch.zeros((r, c), dtype=torch.int8)
+    wt = torch.zeros((n, taps * c), dtype=torch.int8)
+    assert TF.pad_channels(x2d, wt, taps)[0] is x2d
+    _check_int8_emulation(rng, 1, hw, hw, c, n, taps,
+                          TF.plan_tiles(r, c, n, taps, torch.int8), residual, out)
+    for batch in (1, 8):
+        _check_planner_coverage([(taps, hw, c, n)], torch.int8, batch)
+
+
 @pytest.mark.parametrize("variant", range(len(TF.P2D_TILES)))
 @pytest.mark.parametrize("b,h,w,c,n,taps,residual,out", [
     (3, 11, 9, 40, 36, 9, True, "i8"),     # C = 40: padded to 48; N = 36 (36-byte rows)

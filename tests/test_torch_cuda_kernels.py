@@ -214,6 +214,8 @@ INT8_FORWARD_SHAPES = [
     (9, 104, 64, 128), (9, 52, 128, 256), (9, 26, 256, 512), (9, 13, 512, 1024),
     (1, 26, 768, 256), (1, 52, 384, 128), (1, 13, 1024, 255), (1, 26, 512, 255),
     (1, 52, 256, 255), (1, 13, 512, 256), (1, 26, 256, 128),
+    # stage 0's block in a tree without space-to-depth
+    (1, 208, 64, 32), (9, 208, 32, 64),
 ]
 
 
@@ -363,6 +365,100 @@ def test_fused_entry_kernel_rejects_bad_operands(dev):
         EK._launch(xb, qs2d, 0.6, band=9)
     with pytest.raises(ValueError):
         EK._launch(xb, qs2d, 0.6, band=0)
+
+
+def _entry_u8_inputs(b, h, w, dev, seed=0):
+    """The uint8 feed's entry operands: a uint8 image (black and white bands
+    at the two ends of the codes) as ``u8 ^ 0x80`` int8 codes padded with
+    -128 (the real 0 of the scheme) in the 2x2 space-to-depth layout, and a
+    stem whose multipliers and biases are the first 128 of a ``stem4_u8``
+    quantized from random float weights (zero point folded into the bias)."""
+    from yolo_v3_tpu_torch.models import quantized as Q
+
+    rng = np.random.default_rng(seed)
+    u8 = rng.integers(0, 256, (b, 4 * h, 4 * w, 3), dtype=np.uint8)
+    u8[:, :3] = 0
+    u8[:, -3:] = 255
+    x_q = (torch.from_numpy(u8) ^ 0x80).view(torch.int8)
+    xb = D._space_to_depth2(torch.nn.functional.pad(x_q, (0, 0, 1, 3, 1, 3), value=-128))
+    _, qs2d = _entry_inputs(b, h, w, dev, seed)
+    stem_w = rng.normal(0, 0.3, (3, 3, 3, 32)).astype(np.float32)
+    stem_b = rng.normal(0, 0.1, 32).astype(np.float32)
+    s_out = 6.0 / 127
+    w4, b4 = D._stem4_weights(stem_w, stem_b)
+    w4q, s4w = Q._quant_w(w4)
+    m_u8 = (1.0 / 255.0) * s4w / s_out
+    zp = 128.0 * m_u8 * w4q.numpy().astype(np.int32).sum((0, 1, 2))
+    w2q, _ = Q._quant_w(D._s2d_stem_weights(stem_w))
+    stem = Q._stem_u8({"stem": {"w": w2q},
+                       "stem4_u8": {"w": w4q, "m": Q._t(m_u8), "b": Q._t(b4 / s_out + zp)}})
+    qs2d["stem"] = {k: v.to(dev) for k, v in stem.items()}
+    return xb.contiguous().to(dev), qs2d
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 13, 21), (2, 24, 24), (8, 104, 104), (1, 104, 104),
+                                   (8, 7, 40), (16, 52, 52)])
+@pytest.mark.parametrize("band", [None, 1, 3, 0])
+def test_fused_entry_kernel_u8_operands(dev, b, h, w, band):
+    """The uint8 feed's operands (-128 pad, stem4_u8's multipliers and
+    biases) at batch 1, 2, 8 and 16 and the ragged shapes, with the
+    planner's band (None) and bands of 1, 3 and h (0): bit-equal to the
+    plain version.  Where the kernel makes zeros itself (the stem's im2col
+    outside the image, the rows above a band) they reach only stem outputs
+    that down0's padding masks, so the caller's pad is all the feed needs."""
+    xb, qs2d = _entry_u8_inputs(b, h, w, dev)
+    if band is None:
+        got = EK.fused_entry(xb, qs2d, 0.6)
+    else:
+        got = EK._launch(xb, qs2d, 0.6, band=min(band or h, h))
+    _check_entry(xb, qs2d, got)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(8, 208, 208, 64), (2, 1, 1, 64), (3, 1, 1, 1024)])
+def test_int8_res_block_kernel_at_stage0_and_the_smallest_grid(dev, b, h, w, c):
+    """A tree without space-to-depth runs stage 0's block on the p2d
+    kernels: 208^2 at batch 8, C 64 -> N 32 (1x1) and C 32 -> N 64 (3x3),
+    widths below one tile (N = 32 under a 64- or 128-wide tile, 32-byte
+    rows of C = 32); and hp = wp = 3 (h = w = 1).  Bit-equal to the plain
+    version, one launch of each kernel."""
+    rng = np.random.default_rng(2)
+    x2d = FC.pack_p2d(_i8(rng, (b, h, w, c))).to(dev)
+    w1, w2 = _i8(rng, (c, c // 2)).to(dev), _i8(rng, (3, 3, c // 2, c)).to(dev)
+    s1, b1 = (t.to(dev) for t in _scale_bias(rng, c // 2, c))
+    s2, b2 = (t.to(dev) for t in _scale_bias(rng, c, 9 * c // 2))
+    _, hp, wp = FC.p2d_geometry(b, h, w)
+    counts = (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches)
+    got = FC.res_block_p2d(x2d, w1, s1, b1, w2, s2, b2, hp, wp, res_scale=0.8)
+    torch.cuda.synchronize()
+    assert (FC.conv1x1_p2d.launches, FC.conv3x3_p2d.launches) == tuple(n + 1 for n in counts)
+    want = FC.res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, res_scale=0.8)
+    assert torch.equal(got, want), (got.int() - want.int()).abs().max()
+
+
+@pytest.mark.parametrize("s2d", [True, False], ids=["s2d", "no_s2d"])
+def test_int8_forwards_of_every_feed_match_plain(dev, s2d):
+    """A small int8 net (blocks (1,1,1,1,1), 96 px): the float feed and, for
+    an s2d tree, the uint8 feed, kernel path bit-equal to the plain path;
+    the entry kernel launches once on an s2d tree and never without s2d,
+    where the stage-0 block runs on the p2d kernels."""
+    from yolo_v3_tpu_torch.models import quantized as Q
+
+    gen = torch.Generator().manual_seed(0)
+    params, state = D.init_yolonet(gen, 2, blocks=(1, 1, 1, 1, 1))
+    x = torch.rand(2, 96, 96, 3, generator=gen).to(dev)
+    model = Q.YoloNetQuantized(Q.build_quantized(params, state, x, space_to_depth=s2d)).to(dev)
+    feeds = [x] + ([(x * 255).round().to(torch.uint8)] if s2d else [])
+    for feed in feeds:
+        counters = (EK.fused_entry, FC.res_block_p2d)
+        before = [f.launches for f in counters]
+        with torch.inference_mode():
+            heads = model(feed)
+            torch.cuda.synchronize()
+            assert [f.launches - n for f, n in zip(counters, before)] == (
+                [1, 4] if s2d else [0, 5])
+            plain = model(feed, plain=True)
+        for h, p in zip(heads, plain):
+            assert h.dtype == torch.bfloat16 and torch.equal(h, p)
 
 
 # ---------------------------------------------------------------------------

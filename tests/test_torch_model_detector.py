@@ -13,6 +13,7 @@ from yolo_v3_tpu.models import darknet as JD
 from yolo_v3_tpu.utils.config import YoloConfig as JConfig
 from yolo_v3_tpu_torch.detector import Detector
 from yolo_v3_tpu_torch.models import darknet as TD
+from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as TW
 from yolo_v3_tpu_torch.utils.config import YoloConfig
 
@@ -183,15 +184,19 @@ def test_detector_from_checkpoint_and_bf16(trees, images, tmp_path):
 
 
 def test_int8_precision_raises(trees):
-    """int8 is served now (tests/test_torch_quantized.py); an unknown
-    precision, or an int8 tree the port cannot serve, still raises."""
+    """int8 is served now (tests/test_torch_quantized.py), trees without s2d
+    too (tests/test_torch_quantized_feeds.py); an unknown precision, or an
+    int8 tree whose backbone skips a stage, still raises."""
     p, s = trees
     with pytest.raises(ValueError, match="precision"):
         Detector(TW.params_from_numpy(p), TW.params_from_numpy(s),
                  YoloConfig(**CFG), precision="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="s2d"):
-        Detector(None, None, YoloConfig(**CFG), quantized_tree={"scales": {}},
-                 device="cpu")
+    cfg = YoloConfig(**CFG)
+    tree = Q.build_quantized(TW.params_from_numpy(p), TW.params_from_numpy(s),
+                             torch.zeros((1, 64, 64, 3)), space_to_depth=False)
+    del tree["backbone"]["stage1"]
+    with pytest.raises(ValueError, match="stages"):
+        Detector(None, None, cfg, quantized_tree=tree, device="cpu")
 
 
 def test_detector_defaults_to_the_card(trees):

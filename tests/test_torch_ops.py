@@ -118,11 +118,18 @@ def test_fast_display_matches_jax_with_ties(use_nms):
 
 
 def test_unported_modes_raise():
+    """Eval mode and the global-top-k display path are served now
+    (tests/test_torch_postprocess_modes.py); what is on ROADMAP's
+    do-not-port list raises and says so: approx_max_k at recall 0.99 and the
+    truncated top-k eval path (eval_grid_nms=False, or eval without NMS)."""
     raws = [torch.from_numpy(r) for r in _tied_raws(5)]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TP.postprocess_from_raws(raws, YoloConfig(num_classes=2), 64, 0.3, 0.4,
-                                 is_eval=True)
-    with pytest.raises(NotImplementedError):
-        TP.postprocess_from_raws(raws, YoloConfig(num_classes=2,
-                                                  display_per_scale_topk=0),
-                                 64, 0.3, 0.4)
+    cfg = YoloConfig(num_classes=2)
+    for kw in (dict(is_eval=True), dict()):
+        out = TP.postprocess_from_raws(
+            raws, YoloConfig(num_classes=2, display_per_scale_topk=0), 64, 0.3, 0.4, **kw)
+        assert out.shape == (2, cfg.max_detections, 8) and bool((out[..., 7] > 0).any())
+    for config, kw in ((YoloConfig(num_classes=2, eval_approx_topk=True), {}),
+                       (YoloConfig(num_classes=2, eval_grid_nms=False), {}),
+                       (cfg, dict(use_nms=False))):
+        with pytest.raises(NotImplementedError, match="do-not-port"):
+            TP.postprocess_from_raws(raws, config, 64, 0.3, 0.4, is_eval=True, **kw)

@@ -232,13 +232,24 @@ def test_quantized_forward_plain_switch(setup):
 
 
 def test_quantized_forward_refuses_unported_feeds(setup):
+    """The uint8 feed and trees without s2d are served now
+    (tests/test_torch_quantized_feeds.py).  What the port still refuses:
+    the uint8 feed on a tree without ``stem4_u8`` (as JAX needs it too), and
+    a ``stem4_u8`` that is not the stem tiled over the 4x4 block, which the
+    entry's 2x2 stem could not stand in for."""
     tree = TQ.qtree_from_numpy(jax.device_get(setup["q"]))
     model = TQ.YoloNetQuantized(tree)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model(torch.zeros((1, DIM, DIM, 3), dtype=torch.uint8))
-    no_s2d = {k: v for k, v in tree.items() if k != "s2d"}
-    with pytest.raises(NotImplementedError, match="s2d"):
-        TQ.YoloNetQuantized(no_s2d)
+    with torch.no_grad():
+        heads = model(torch.zeros((1, DIM, DIM, 3), dtype=torch.uint8))
+    assert [tuple(h.shape) for h in heads] == [(1, DIM // s, DIM // s, 39) for s in (32, 16, 8)]
+    no_u8 = dict(tree, s2d={k: v for k, v in tree["s2d"].items() if k != "stem4_u8"})
+    with pytest.raises(ValueError, match="uint8 feed"):
+        TQ.YoloNetQuantized(no_u8)(torch.zeros((1, DIM, DIM, 3), dtype=torch.uint8))
+    bad = dict(tree["s2d"]["stem4_u8"])
+    bad["m"] = bad["m"].clone()
+    bad["m"][200] *= 2
+    with pytest.raises(ValueError, match="tile"):
+        TQ.YoloNetQuantized(dict(tree, s2d=dict(tree["s2d"], stem4_u8=bad)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """High-level detection API: images in, boxes out.
 
 Port of ``yolo_v3_tpu/detector.py`` for bf16, fp32 and int8 serving.  On
-the device: letterbox (cubic resize as two matmuls), the forward (BN-folded
-float with every residual block on the fused kernel, or int8 with every conv
-but three on the int8 kernels), per-scale display postprocess with
-class-wise greedy NMS, and the mapping of boxes back to original-image
-pixels.  Only the compact [B, M, 8] result returns to the host.
+the device: letterbox or plain resize (cubic, as two matmuls), the forward
+(BN-folded float with every residual block on the fused kernel, or int8 on
+the int8 kernels), the display or eval postprocess with class-wise greedy
+NMS, and the mapping of boxes back to original-image pixels.  Only the
+compact [B, M, 8] result returns to the host.  With ``resize_on_device=False``
+the host resizes with OpenCV (imported only there) and int8 takes the
+uint8 images as they are (the uint8 feed).
 
 Output rows per image: [cls, x, y, w, h, prob, obj], xywh in original-image
 pixels.
@@ -22,7 +24,8 @@ from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as W
 from yolo_v3_tpu_torch.ops import boxes as B
-from yolo_v3_tpu_torch.ops.letterbox import letterbox_device
+from yolo_v3_tpu_torch.ops.letterbox import (letterbox_device, letterbox_host,
+                                             letterbox_host_u8, resize_cubic_device)
 from yolo_v3_tpu_torch.ops.postprocess import detections_to_lists, postprocess_from_raws
 from yolo_v3_tpu_torch.utils.config import YoloConfig
 
@@ -36,26 +39,30 @@ def detect_fn(
     config: YoloConfig,
     conf_thr: float,
     nms_thr: float,
+    is_eval: bool = False,
     use_nms: bool = True,
+    is_letterbox: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
 ) -> torch.Tensor:
     """Device pipeline on a :class:`~yolo_v3_tpu_torch.models.darknet.
     YoloNetFolded` or :class:`~yolo_v3_tpu_torch.models.quantized.
-    YoloNetQuantized` (display mode).
+    YoloNetQuantized`.
 
-    ``x``: [B, H, W, 3] float, letterboxed to the net input;
-    ``org_dims``: [B, 2] (org_w, org_h).  ``plain`` runs the kernels' plain
+    ``x``: [B, H, W, 3] float, letterboxed or resized to the net input, or
+    uint8 for the int8 model's uint8 feed (passed on unconverted);
+    ``org_dims``: [B, 2] (org_w, org_h).  ``is_letterbox`` says how ``x``
+    was made, so how boxes map back.  ``plain`` runs the kernels' plain
     versions.  Returns [B, M, 8]: x, y, w, h (original-image pixels), obj,
     prob, cls, valid.
     """
     img_dim = x.shape[1]
-    raws = model(x.to(compute_dtype), plain=plain)
+    raws = model(x if x.dtype == torch.uint8 else x.to(compute_dtype), plain=plain)
     res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
-                                nms_thr=nms_thr, use_nms=use_nms)
+                                nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms)
     org = org_dims.to(torch.float32)
     xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
-                                img_dim, img_dim, is_letterbox=True)
+                                img_dim, img_dim, is_letterbox=is_letterbox)
     return torch.cat([xywh, res[..., 4:]], dim=-1)
 
 
@@ -68,10 +75,16 @@ class Detector:
     kernels.  Without a card the default fails with PyTorch's own error;
     ``device="cpu"`` runs the kernels' plain versions instead.
 
+    ``letterbox``: letterbox the images (True) or resize them to the square
+    net input; ``resize_on_device``: resize on the device (True) or on the
+    host with OpenCV.  int8 with ``resize_on_device=False`` takes the host's
+    uint8 images as they are (the uint8 feed).
+
     int8 calibrates its activation scales on ``calib_images`` (HWC uint8)
-    when given, else on the JAX package's synthetic batch (uniform noise from
-    ``np.random.default_rng(0)``, 8 images).  A quantized tree
-    (``quantized_tree``, :meth:`from_quantized`) skips calibration.
+    when given, preprocessed as float images, else on the JAX package's
+    synthetic batch (uniform noise from ``np.random.default_rng(0)``, 8
+    images).  A quantized tree (``quantized_tree``, :meth:`from_quantized`)
+    skips calibration.
     """
 
     def __init__(
@@ -81,6 +94,8 @@ class Detector:
         config: YoloConfig = YoloConfig(),
         precision: str = "bf16",
         device="cuda",
+        letterbox: bool = True,
+        resize_on_device: bool = True,
         calib_images=None,
         quantized_tree=None,
     ):
@@ -92,8 +107,13 @@ class Detector:
         self.config = config
         self.precision = precision
         self.device = torch.device(device)
+        self.letterbox = letterbox
+        self.resize_on_device = resize_on_device
+        self._u8_feed = False
         if precision == "int8":
             if quantized_tree is None:
+                # calibrate on float images: the uint8 feed is switched on
+                # only below, as the JAX Detector does
                 if calib_images is not None:
                     calib, _ = self.preprocess(calib_images)
                 else:
@@ -104,6 +124,8 @@ class Detector:
             self.qtree = quantized_tree
             self.compute_dtype = torch.float32      # the image is quantized inside
             self.model = Q.YoloNetQuantized(quantized_tree).to(self.device).eval()
+            # the host keeps images in uint8 and the net takes them as they are
+            self._u8_feed = not resize_on_device
             return
         self.compute_dtype = _DTYPES[precision]
         folded = D.fold_batchnorm(D.cast_params(params, torch.float32, self.device),
@@ -149,16 +171,35 @@ class Detector:
     # -- inference --------------------------------------------------------
 
     def preprocess(self, images: Sequence[np.ndarray], dim: Optional[int] = None):
-        """HWC uint8 RGB images -> (letterboxed [B, dim, dim, 3] float32,
-        org_dims [B, 2]), both on the detector's device."""
+        """HWC uint8 RGB images -> ([B, dim, dim, 3] float32 in [0, 1], or
+        uint8 for the uint8 feed; org_dims [B, 2]), both on the detector's
+        device.  Letterbox or plain cubic resize per ``letterbox``, on the
+        device or on the host (OpenCV) per ``resize_on_device``."""
         dim = dim or self.config.img_dim
         org = torch.tensor([[im.shape[1], im.shape[0]] for im in images],
                            dtype=torch.float32, device=self.device)
-        batch = torch.stack([
-            letterbox_device(torch.from_numpy(np.ascontiguousarray(im)).to(self.device),
-                             (dim, dim))
-            for im in images])
-        return batch, org
+
+        def on_device(im):
+            return torch.from_numpy(np.ascontiguousarray(im)).to(self.device)
+
+        if self.resize_on_device:
+            if self.letterbox:
+                batch = [letterbox_device(on_device(im), (dim, dim)) for im in images]
+            else:
+                batch = [resize_cubic_device(on_device(im).float() / 255.0, dim, dim)
+                         .clamp(0.0, 1.0) for im in images]
+            return torch.stack(batch), org
+        if self.letterbox:
+            host = letterbox_host_u8 if self._u8_feed else letterbox_host
+            batch = np.stack([host(im, (dim, dim)) for im in images])
+        else:
+            import cv2
+
+            batch = np.stack([cv2.resize(im, (dim, dim), interpolation=cv2.INTER_CUBIC)
+                              for im in images])
+            if not self._u8_feed:
+                batch = batch.astype(np.float32) / 255.0
+        return torch.from_numpy(batch).to(self.device), org
 
     @torch.inference_mode()
     def detect(
@@ -166,6 +207,7 @@ class Detector:
         images: Sequence[np.ndarray],
         conf_thr: Optional[float] = None,
         nms_thr: Optional[float] = None,
+        is_eval: bool = False,
         use_nms: bool = True,
         dim: Optional[int] = None,
         plain: bool = False,
@@ -173,14 +215,18 @@ class Detector:
         """Detect objects in HWC uint8 RGB images.
 
         Returns, per image, a [n, 7] array of rows
-        [cls, x, y, w, h, prob, obj] in original-image pixels.
-        ``plain`` runs the kernels' plain PyTorch versions instead of the
-        kernels.
+        [cls, x, y, w, h, prob, obj] in original-image pixels.  ``is_eval``
+        proposes every (box, class) pair, with the eval thresholds
+        (``config.eval_conf_thr`` / ``eval_nms_thr``) by default.  ``plain``
+        runs the kernels' plain PyTorch versions instead of the kernels.
         """
-        conf_thr = self.config.conf_thr if conf_thr is None else conf_thr
-        nms_thr = self.config.nms_thr if nms_thr is None else nms_thr
+        if conf_thr is None:
+            conf_thr = self.config.eval_conf_thr if is_eval else self.config.conf_thr
+        if nms_thr is None:
+            nms_thr = self.config.eval_nms_thr if is_eval else self.config.nms_thr
         x, org = self.preprocess(images, dim)
         res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
-                        use_nms=use_nms, compute_dtype=self.compute_dtype, plain=plain)
+                        is_eval=is_eval, use_nms=use_nms, is_letterbox=self.letterbox,
+                        compute_dtype=self.compute_dtype, plain=plain)
         # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
         return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

@@ -1,6 +1,8 @@
 """int8 serving: calibration, quantization, the serving artifact and the
-quantized forward.  Port of ``yolo_v3_tpu/models/quantized.py`` for the
-float-image feed of space-to-depth trees.
+quantized forward, and the per-layer int8 helpers.  Port of
+``yolo_v3_tpu/models/quantized.py``: trees with and without the
+space-to-depth entry, the float-image feed and (on s2d trees) the uint8
+feed.
 
 Scheme (the JAX package's, unchanged):
 
@@ -19,10 +21,11 @@ weights and statistics give a bit-equal tree.  Trees are nested dicts:
 int8/float32 tensors, Python floats (``res_scale``, ``scales/*``) and a
 tuple of floats (``route_scales``).
 
-:class:`YoloNetQuantized` runs the forward on the hand-written kernels: the
-entry (stem .. stage 1's downsample) on ``fused_entry``, every residual block
-and head conv on ``conv1x1_p2d`` / ``conv3x3_p2d`` in the padded-2D layout.
-The three stride-2 downsamples of stages 2-4 are plain int8 GEMMs
+:class:`YoloNetQuantized` runs the forward on the hand-written kernels: an
+s2d tree's entry (stem .. stage 1's downsample) on ``fused_entry``, every
+residual block and head conv on ``conv1x1_p2d`` / ``conv3x3_p2d`` in the
+padded-2D layout.  The stride-2 downsamples outside the entry (stages 2-4;
+in a tree without s2d also the stem and stages 0-1's) are plain int8 GEMMs
 (``conv_i8_nhwc``).
 """
 
@@ -195,8 +198,10 @@ def quantize_yolonet(folded: Dict, stats: Dict) -> Dict:
     if use_s2d:
         sp = folded["s2d"]
         qs: Dict = {"stem": _qconv(sp["stem"], sc["image"], sc["s2d/stem"])}
-        # the 4x4-domain stem and its uint8-input variant (the u8 feed);
-        # carried so the tree stays the JAX one
+        # the 4x4-domain stem and its uint8-input variant.  uint8 images go
+        # in as (u8 - 128) codes of scale 1/255, the -128 pad being a real
+        # 0, and the +128 zero point is folded through the conv into the
+        # bias: acc_x = (acc_q + 128 * sum(w_q)) / 255 per output channel
         w4, b4 = D._stem4_weights(p["stem"]["w"], p["stem"]["b"])
         w4q, s4w = _quant_w(w4)
         s_out = sc["s2d/stem"]
@@ -452,30 +457,49 @@ class _QHead(nn.Module):
         return det, branch
 
 
-class YoloNetQuantized(nn.Module):
-    """The int8 forward of a space-to-depth quantized tree: the JAX
-    ``apply_yolonet_quantized`` on the float-image feed.
+_U8_NEEDS_S2D = ("the uint8 feed needs a quantized tree with s2d and 's2d/stem4_u8' "
+                 "(build_quantized's default)")
 
-    ``forward(x)`` takes a float [B, H, W, 3] image batch (H, W multiples of
-    32) and returns the three raw heads, coarse first, bf16 NHWC.  Every conv
-    but the stride-2 downsamples of stages 2-4 runs on a kernel wrapper;
+
+class YoloNetQuantized(nn.Module):
+    """The int8 forward of a quantized tree: the JAX
+    ``apply_yolonet_quantized`` (float image) and, for an s2d tree,
+    ``apply_yolonet_quantized_u8`` (uint8 image).
+
+    ``forward(x)`` takes a [B, H, W, 3] image batch (H, W multiples of 32),
+    float in [0, 1] or uint8, and returns the three raw heads, coarse first,
+    bf16 NHWC.  An s2d tree runs its entry on ``fused_entry``; a tree without
+    s2d runs its stem and stage 0's downsample as plain int8 convs and stage
+    0's residual block on the p2d kernels like every other block.
     ``plain=True`` runs the kernels' plain versions instead.
+
+    The uint8 feed: ``u8 ^ 0x80`` read as int8 is the quantized image (scale
+    1/255, zero point folded into ``stem4_u8``'s bias), padded with -128.
+    ``stem4_u8`` is the stem tiled over 4x4 blocks: the same filters, so the
+    same weight codes and per-channel scales as the 2x2 stem, and its
+    multiplier and bias are a tile of one per-channel vector.  The entry
+    therefore runs the 2x2 stem's weights with the first 128 of them (the
+    2x2 stem's channel order); the constructor checks the tiling.
     """
 
     def __init__(self, q: Dict):
         super().__init__()
-        if "s2d" not in q:
-            raise NotImplementedError(
-                "quantized trees without 's2d' are not ported (ROADMAP, still "
-                "queued: trees without s2d)")
         self.scales = {k: float(v) for k, v in q["scales"].items()}
         self.route_scales = tuple(float(s) for s in q["route_scales"])
-        self.entry = nn.ModuleDict({k: _QConv(q["s2d"][k]) for k in EK.CONVS})
-        self.entry_res_scale = self.scales["s2d/down0"] / self.scales["s2d/res0_2"]
         qb = q["backbone"]
+        self.has_s2d = "s2d" in q
+        if self.has_s2d:
+            self.entry = nn.ModuleDict({k: _QConv(q["s2d"][k]) for k in EK.CONVS})
+            self.entry_res_scale = self.scales["s2d/down0"] / self.scales["s2d/res0_2"]
+            self.stem_u8 = _QConv(_stem_u8(q["s2d"])) if "stem4_u8" in q["s2d"] else None
+        else:
+            self.stem = _QConv(qb["stem"])
         stages = sorted(int(k[5:]) for k in qb if k.startswith("stage"))
-        if stages[0] != 1:
-            raise ValueError(f"an s2d tree's backbone starts at stage1, got {stages}")
+        first = 1 if self.has_s2d else 0
+        if stages != list(range(first, first + len(stages))):
+            raise ValueError(f"a{'n s2d' if self.has_s2d else ' plain'} tree's backbone "
+                             f"runs stages {first}.., got {stages}")
+        self.first_stage = first
         self.downs = nn.ModuleList()
         self.stages = nn.ModuleList()
         for i in stages:
@@ -494,20 +518,37 @@ class YoloNetQuantized(nn.Module):
     def num_res_blocks(self) -> int:
         return sum(len(s) for s in self.stages)
 
-    def forward(self, x: torch.Tensor, plain: bool = False):
+    def entry_operands(self, x: torch.Tensor):
+        """An s2d tree's ``fused_entry`` operands for the image batch ``x``
+        (float or uint8): the space-to-depth image codes ``xb`` and the
+        entry's convs, the uint8 feed's stem in place of ``stem``."""
         if x.dtype == torch.uint8:
-            raise NotImplementedError(
-                "the uint8 feed (apply_yolonet_quantized_u8, stem4_u8) needs the "
-                "host letterbox option: ROADMAP deferred item 6")
+            if self.stem_u8 is None:
+                raise ValueError(_U8_NEEDS_S2D)
+            x_q, pad, stem = (x ^ 0x80).view(torch.int8), -128, self.stem_u8
+        else:
+            x_q, pad, stem = quantize_image(x, self.scales["image"]), 0, self.entry["stem"]
+        xb = D._space_to_depth2(F.pad(x_q, (0, 0, 1, 3, 1, 3), value=pad)).contiguous()
+        qs2d = {k: {"w": c.w, "m": c.m, "b": c.b} for k, c in self.entry.items()}
+        qs2d["stem"] = {"w": stem.w, "m": stem.m, "b": stem.b}
+        return xb, qs2d
+
+    def _entry(self, x: torch.Tensor, ops: "Int8Ops") -> torch.Tensor:
+        """Image -> the input of the first stage that the tail runs."""
+        if self.has_s2d:
+            return ops.entry(*self.entry_operands(x), self.entry_res_scale)
+        if x.dtype == torch.uint8:
+            raise ValueError(_U8_NEEDS_S2D)
+        return self.stem.nhwc(quantize_image(x, self.scales["image"]))
+
+    def forward(self, x: torch.Tensor, plain: bool = False):
         ops = PLAIN if plain else KERNELS
         sc = self.scales
-        x_q = quantize_image(x, sc["image"])
-        xb = D._space_to_depth2(F.pad(x_q, (0, 0, 1, 3, 1, 3))).contiguous()
-        qs2d = {k: {"w": c.w, "m": c.m, "b": c.b} for k, c in self.entry.items()}
-        y = ops.entry(xb, qs2d, self.entry_res_scale)
+        y = self._entry(x, ops)
 
         routes = []
-        for i, (down, blocks) in enumerate(zip(self.downs, self.stages), start=1):
+        for i, (down, blocks) in enumerate(zip(self.downs, self.stages),
+                                           start=self.first_stage):
             if isinstance(down, _QConv):
                 y = down.nhwc(y, stride=2)
             b, h, w, _ = y.shape
@@ -538,3 +579,77 @@ class YoloNetQuantized(nn.Module):
         det2, _ = self.head2(y2d, g3[1] + 2, g3[2] + 2, ops)
         return tuple(FC.unpack_p2d(d, *g).contiguous()
                      for d, g in ((det0, g5), (det1, g4), (det2, g3)))
+
+
+def _stem_u8(qs: Dict) -> Dict:
+    """The 2x2 stem of the uint8 feed: ``stem``'s int8 weight with the first
+    128 of ``stem4_u8``'s multipliers and biases, after checking that both
+    are one per-channel vector tiled over the 16 positions of a 4x4 block
+    and that the two stems hold the same weight codes."""
+    w2, w4 = qs["stem"]["w"], qs["stem4_u8"]["w"]
+    m4, b4 = qs["stem4_u8"]["m"], qs["stem4_u8"]["b"]
+    c2 = w2.shape[-1]
+    c1 = c2 // 4
+    for name, v in (("m", m4), ("b", b4)):
+        if not torch.equal(v.reshape(16, c1), v[:c1].expand(16, c1)):
+            raise ValueError(f"stem4_u8's {name} is not a tile of {c1} channels")
+    if not torch.equal(w2.to(torch.int32).sum((0, 1, 2)),
+                       w4.to(torch.int32).sum((0, 1, 2))[:c2]):
+        raise ValueError("stem and stem4_u8 hold different weight codes")
+    return {"w": w2, "m": m4[:c2].clone(), "b": b4[:c2].clone()}
+
+
+# ---------------------------------------------------------------------------
+# Per-layer int8 helpers: the scheme above, one layer at a time, with a float
+# output (the JAX package's standalone building blocks).
+# ---------------------------------------------------------------------------
+
+def quantize_weights_per_channel(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[kh, kw, cin, cout] float -> (int8 weights, float32 scale [cout])."""
+    w = torch.as_tensor(w, dtype=torch.float32)
+    absmax = w.abs().amax(dim=tuple(range(w.dim() - 1)))
+    scale = torch.clamp(absmax / 127.0, min=1e-12)
+    return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+
+def activation_scale(x_absmax) -> torch.Tensor:
+    """Per-tensor activation scale from a calibrated abs-max."""
+    return torch.clamp(torch.as_tensor(x_absmax, dtype=torch.float32) / 127.0, min=1e-12)
+
+
+def quantize_activation(x: torch.Tensor, scale) -> torch.Tensor:
+    """float -> int8 codes: clip(round(x / scale))."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def conv_int8_bias_leaky(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale: torch.Tensor,
+                         b: torch.Tensor, stride: int = 1, leaky: bool = True,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """One int8 SAME conv (NHWC ``x_q``, HWIO ``w_q``) with an exact int32
+    accumulator and a float epilogue, ``acc * (x_scale * w_scale) + b`` (+
+    leaky), cast to ``out_dtype``: the float-out form of the serving convs,
+    with no requantize."""
+    acc = FC.conv_i8_acc(x_q, w_q, stride=stride)
+    m = torch.as_tensor(x_scale, dtype=torch.float32, device=acc.device) * w_scale.float()
+    y = acc.float() * m + b.float()
+    if leaky:
+        y = torch.where(y > 0, y, FC.LEAKY * y)
+    return y.to(out_dtype)
+
+
+def quantized_block(x: torch.Tensor, p: Dict, x_absmax, stride: int = 1,
+                    leaky: bool = True) -> torch.Tensor:
+    """Quantize the activation and the weights, run the int8 conv: the int8
+    twin of one folded float conv ``p`` = {w, b}, output in ``x``'s dtype."""
+    w_q, w_s = quantize_weights_per_channel(p["w"])
+    x_s = activation_scale(x_absmax)
+    x_q = quantize_activation(x, x_s)
+    return conv_int8_bias_leaky(x_q, w_q.to(x.device), x_s, w_s.to(x.device),
+                                torch.as_tensor(p["b"]).to(x.device), stride, leaky,
+                                out_dtype=x.dtype)
+
+
+def calibrate_absmax(samples: torch.Tensor) -> torch.Tensor:
+    """abs-max over a calibration batch (per tensor)."""
+    return samples.abs().max()

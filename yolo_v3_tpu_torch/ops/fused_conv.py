@@ -33,9 +33,10 @@ round once, as the reference's ``_conv_bias_leaky`` does.  The tile shape
 is picked per shape and input type by :func:`plan_tiles`, which the C
 launcher mirrors.
 
-:func:`conv_i8_nhwc` is the plain NHWC int8 convolution (explicit im2col +
-an exact int32 product) with the same epilogue: the plain version of the
-entry chain and the int8 path's three stride-2 downsamples.
+:func:`conv_i8_nhwc` is the plain NHWC int8 convolution (:func:`conv_i8_acc`:
+explicit im2col + an exact int32 product) with the same epilogue: the plain
+version of the entry chain and the int8 path's stride-2 downsamples (and,
+in a tree without space-to-depth, its stem).
 """
 
 from __future__ import annotations
@@ -186,11 +187,10 @@ def res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
                            residual=x2d, res_scale=res_scale)
 
 
-def conv_i8_nhwc(x, w, scale, bias, *, stride=1,
-                 padding: Optional[Sequence[Tuple[int, int]]] = None,
-                 residual=None, res_scale=1.0):
-    """int8 NHWC convolution with an HWIO int8 weight, int32 accumulation and
-    the kernels' leaky int8 epilogue (the JAX ``quantized._conv_i8``).
+def conv_i8_acc(x, w, *, stride=1,
+                padding: Optional[Sequence[Tuple[int, int]]] = None) -> torch.Tensor:
+    """The exact int32 accumulator [B, Ho, Wo, N] of an int8 NHWC convolution
+    with an HWIO int8 weight: an explicit im2col and :func:`int_mm`.
     ``padding`` is ((top, bottom), (left, right)); the default is SAME for
     odd kernels."""
     kh, kw, c, n = w.shape
@@ -205,7 +205,18 @@ def conv_i8_nhwc(x, w, scale, bias, *, stride=1,
            dx:dx + stride * (wo - 1) + 1:stride, :]
         for dy in range(kh) for dx in range(kw)], dim=-1)
     acc = int_mm(cols.reshape(b * ho * wo, kh * kw * c), w.reshape(kh * kw * c, n))
-    out = epilogue_ref(acc, scale, bias,
+    return acc.reshape(b, ho, wo, n)
+
+
+def conv_i8_nhwc(x, w, scale, bias, *, stride=1,
+                 padding: Optional[Sequence[Tuple[int, int]]] = None,
+                 residual=None, res_scale=1.0):
+    """int8 NHWC convolution with an HWIO int8 weight, int32 accumulation and
+    the kernels' leaky int8 epilogue (the JAX ``quantized._conv_i8``);
+    ``padding`` as :func:`conv_i8_acc`'s."""
+    acc = conv_i8_acc(x, w, stride=stride, padding=padding)
+    b, ho, wo, n = acc.shape
+    out = epilogue_ref(acc.reshape(-1, n), scale, bias,
                        residual=None if residual is None else residual.reshape(-1, n),
                        res_scale=res_scale)
     return out.reshape(b, ho, wo, n)

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    read just after, heads held against the plain path (int8 bit-equal, bf16
    within 5e-2 * max|head|), rows too where the heads are bit-equal (int8;
    bf16's rows are printed beside the plain path's as information), and
-   (d)'s rows on the card against the CPU's.
+   (d)'s rows on the card against the CPU's;
+7. training, on the same seed-0 model loaded from its ``.weights`` into the
+   training form, 16 seeded uint8 416 x 416 scenes in memory (1-8 boxes
+   each), ``DataHelper`` at batch 8 x 2 subdivisions: ``train()`` for 5
+   net-batches in fp32 and in bf16 (finite loss that falls on the repeated
+   net-batch, every param and BN-state leaf moved, a final checkpoint), the
+   step alone timed (ms per net-batch, train imgs/sec, peak memory) and, in
+   bf16, its top 5 device ops (torch.profiler); forward + loss on 2 images
+   on the card against the CPU (fp32, rtol 1e-4, nGT / nCorrect equal);
+   resume == one go (2 net-batches against 1 + checkpoint + resume + 1,
+   params and BN state bit-equal) in a child process with deterministic
+   algorithms; 2 multi-scale net-batches at the sampler's dims (320-608);
+   the final checkpoint served by ``Detector.from_checkpoint`` in fp32 and
+   bf16 (phase 4's launch counts, fp32 rows and heads against the plain
+   path); the bf16 stem and 5 downs against an fp32 single-rounding
+   reference with TF32 off (under 0.1% of outputs differ), timed beside the
+   double-rounding bf16 conv + leaky they replace.
 
 TF32 is turned off only around this script's own plain references and
 cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
@@ -1159,6 +1175,415 @@ def serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+
+TRAIN_IMAGES = 16           # the in-memory dataset: one net-batch
+TRAIN_BATCH = 8             # micro-batch
+TRAIN_SUBDIVISIONS = 2
+TRAIN_STEPS = 5
+TRAIN_MAX_LABELS = 8
+# bf16 outputs that may differ from the single-rounding reference at all,
+# and the fp32 summation-order floor near zero (tests/test_torch_bf16_single_rounding.py)
+C1_MAX_OFF_SHARE = 1e-3
+C1_ABS_FLOOR = 2.0 ** -12
+# the trained checkpoint's rows are also compared at a threshold that
+# leaves between this many candidates of the batch
+SERVE_ROWS = (8, 64)
+
+
+class SceneDataset:
+    """Seeded uint8 416 x 416 scenes in memory, each with 1-8 boxes drawn on
+    it in its class's colour; ``get`` resizes to the scheduled dim by nearest
+    neighbour (the card's host has no OpenCV; labels are relative, so they
+    hold at any dim)."""
+
+    def __init__(self, n, num_classes, seed=7, hw=416):
+        rng = np.random.default_rng(seed)
+        coarse = rng.integers(60, 190, (n, hw // 16 + 1, hw // 16 + 1, 3))
+        imgs = np.repeat(np.repeat(coarse, 16, 1), 16, 2)[:, :hw, :hw]
+        imgs = imgs + rng.integers(-10, 10, imgs.shape)
+        colours = rng.integers(0, 255, (num_classes, 3))
+        self.labels = np.zeros((n, TRAIN_MAX_LABELS, 5), np.float32)
+        for i in range(n):
+            for t in range(int(rng.integers(1, 9))):
+                c = int(rng.integers(0, num_classes))
+                w, h = rng.uniform(0.08, 0.5, 2)
+                cx, cy = rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2)
+                self.labels[i, t] = (c, cx, cy, w, h)
+                x0, x1 = int((cx - w / 2) * hw), int((cx + w / 2) * hw)
+                y0, y1 = int((cy - h / 2) * hw), int((cy + h / 2) * hw)
+                imgs[i, y0:y1, x0:x1] = colours[c]
+        self.imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def get(self, i, dim, seed):
+        w, h = dim
+        src = self.imgs[i]
+        rows = np.arange(h) * src.shape[0] // h
+        cols = np.arange(w) * src.shape[1] // w
+        return {"img": src[rows][:, cols], "label": self.labels[i].copy(), "rng": seed}
+
+
+def train_data(dataset, max_net_batches, dim=(416, 416), rand_dim_interval=None, seed=0):
+    from yolo_v3_tpu_torch.data.loader import DataHelper
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+
+    sampler = CyclicSampler(len(dataset), TRAIN_BATCH, shuffle=False, dim=dim,
+                            rand_dim_interval=rand_dim_interval, seed=seed)
+    return DataHelper(dataset, sampler, max_net_batches=max_net_batches,
+                      net_subdivisions=TRAIN_SUBDIVISIONS, prefetch=0)
+
+
+def seed_trees(weights_path, num_classes):
+    """The training-form {params, state} of phase 4's seed .weights."""
+    from yolo_v3_tpu_torch.models import darknet as D
+    from yolo_v3_tpu_torch.models import weights as W
+
+    params, state = D.init_yolonet(torch.Generator().manual_seed(0), num_classes,
+                                   blocks=DARKNET53_BLOCKS)
+    params, state, _, _ = W.load_darknet_weights(params, state, weights_path)
+    return params, state
+
+
+def flat_trees(tree):
+    from yolo_v3_tpu_torch.models.weights import _flatten_with_names
+
+    return _flatten_with_names(tree)
+
+
+def row_threshold(heads, config):
+    """A display threshold in the widest relative gap between the batch's
+    sorted row scores (sigmoid(obj) * sigmoid(max class), as the display
+    postprocess ranks them), among those that leave SERVE_ROWS candidates."""
+    lo, hi = SERVE_ROWS
+    scores = torch.cat([
+        (torch.sigmoid(r[..., 4]) * torch.sigmoid(r[..., 5:].amax(-1))).flatten()
+        for r in (h.float().reshape(*h.shape[:3], -1, 5 + config.num_classes)
+                  for h in heads)])
+    top = torch.sort(scores, descending=True).values[:hi + 1].double()
+    k = lo + int(torch.argmax(top[lo - 1:hi] / top[lo:hi + 1]))
+    return float(torch.sqrt(top[k - 1] * top[k]))
+
+
+def resume_check(weights_path, work):
+    """Child process of phase 7 (``--resume-check``): with deterministic
+    algorithms on, 2 fp32 net-batches in one run against 1 + checkpoint +
+    resume + 1.  Prints one JSON line: bit-equal, or the ops that have no
+    deterministic CUDA form and the largest difference."""
+    import warnings
+
+    from yolo_v3_tpu_torch.train.checkpoint import get_latest_checkpoint, load_checkpoint
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    config = YoloConfig()
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS)
+    dataset = SceneDataset(TRAIN_IMAGES, config.num_classes)
+
+    def runs():
+        params, state = seed_trees(weights_path, config.num_classes)
+        quiet = dict(device="cuda", log_fn=lambda s: None)
+        one_go = train(train_data(dataset, 2), params, state, config, tcfg, **quiet)
+        train(train_data(dataset, 1), params, state, config, tcfg, model_id="r",
+              weight_dir=work, **quiet)
+        path, _ = get_latest_checkpoint("r", work)
+        resumed = train(train_data(dataset, 2), params, state, config, tcfg,
+                        checkpoint=load_checkpoint(path), **quiet)
+        return one_go, resumed
+
+    torch.use_deterministic_algorithms(True)
+    nondeterministic = []
+    try:
+        one_go, resumed = runs()
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            one_go, resumed = runs()
+        nondeterministic = sorted({str(w.message).split(" does not have")[0]
+                                   for w in caught if "deterministic" in str(w.message)})
+    max_diff, equal = 0.0, True
+    for i in (0, 1):                                  # params, BN state
+        a, b = flat_trees(one_go[i]), flat_trees(resumed[i])
+        for k in a:
+            equal &= bool(np.array_equal(a[k], b[k]))
+            max_diff = max(max_diff, float(np.abs(a[k] - b[k]).max()))
+    print(json.dumps({"bit_equal": equal, "max_abs_diff": max_diff,
+                      "nondeterministic_ops": nondeterministic,
+                      "loss": resumed[3].current_stats["loss"]}))
+
+
+def c1_gate(card, weights_path, imgs):
+    """The bf16 stem and 5 downs of the folded forward (one fp32 conv with
+    TF32 on the bf16 values, bias and leaky in fp32, one rounding) against
+    an fp32 single-rounding reference with TF32 off, on the inputs a bf16
+    forward of phase 4's batch gives them; and the 6 convs' device time
+    against the double-rounding bf16 conv + leaky they replace."""
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.models.darknet import LEAKY_SLOPE
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+    from yolo_v3_tpu_torch.utils.precision import full_fp32
+
+    det = Detector.from_darknet_weights(weights_path, YoloConfig(), device="cuda",
+                                        precision="bf16")
+    convs = [det.model.stem, *det.model.downs]
+    inputs = []
+    hooks = [c.register_forward_pre_hook(lambda m, a: inputs.append(a[0])) for c in convs]
+    x, _ = det.preprocess(imgs)
+    with torch.inference_mode():
+        det.model(x.to(torch.bfloat16))
+    for h in hooks:
+        h.remove()
+
+    def ordered(a):
+        bits = (a.float().view(torch.int32) >> 16).to(torch.int64) & 0xFFFF
+        return torch.where(bits >= 0x8000, -(bits & 0x7FFF), bits)
+
+    def double_rounding(conv, xi):
+        y = F.conv2d(xi, conv.weight, conv.bias, conv.stride, conv.pad)
+        return F.leaky_relu(y, LEAKY_SLOPE)
+
+    worst, new_ms, old_ms = 0.0, 0.0, 0.0
+    with torch.inference_mode():
+        for i, (conv, xi) in enumerate(zip(convs, inputs)):
+            got = conv(xi)
+            with full_fp32():
+                ref = F.conv2d(xi.float(), conv.weight.float(), None, conv.stride, conv.pad)
+            ref = F.leaky_relu(ref + conv.bias.float()[:, None, None], LEAKY_SLOPE)
+            ref = ref.to(torch.bfloat16)
+            step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126)))
+                              - 7)
+            over = ((got.float() - ref.float()).abs() - step - C1_ABS_FLOOR).max().item()
+            share = (ordered(got) != ordered(ref)).float().mean().item()
+            old = double_rounding(conv, xi)
+            old_share = (ordered(old) != ordered(ref)).float().mean().item()
+            name = "stem" if i == 0 else f"down{i - 1}"
+            check(over <= 0 and share < C1_MAX_OFF_SHARE,
+                  f"C.1 {name}: {share:.4%} of outputs differ from the single-rounding "
+                  f"reference (beyond one step by {over})")
+            worst = max(worst, share)
+            t_new = device_ms(lambda: conv(xi))
+            t_old = device_ms(lambda: double_rounding(conv, xi))
+            new_ms, old_ms = new_ms + t_new, old_ms + t_old
+            log(f"train C.1 {name} {tuple(xi.shape)} -> {tuple(got.shape)}: "
+                f"{share:.5%} of outputs differ from the fp32 single-rounding reference "
+                f"(double rounding: {old_share:.3%}); {t_new:.3f} ms (double-rounding "
+                f"bf16 conv + leaky {t_old:.3f} ms) | {card}")
+    log(f"train C.1 gate: the 6 convs single-rounding {new_ms:.3f} ms per forward, "
+        f"double-rounding {old_ms:.3f} ms (bs{BATCH} 416); worst share differing "
+        f"{worst:.5%} < {C1_MAX_OFF_SHARE:.1%} | {card}")
+    del det
+    torch.cuda.empty_cache()
+    return new_ms, old_ms
+
+
+def training_path(card, weights_path, imgs, work):
+    """Phase 7: the port's training path at full width."""
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.models.darknet import map_tree
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+    from yolo_v3_tpu_torch.train.checkpoint import get_latest_checkpoint
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.train.optimizer import global_norm, make_optimizer
+    from yolo_v3_tpu_torch.train.recorder import Recorder
+    from yolo_v3_tpu_torch.train.step import COMPUTE_DTYPES, loss_fn, make_train_step
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+    from yolo_v3_tpu_torch.utils.precision import full_fp32
+
+    t_phase = time.perf_counter()
+    config = YoloConfig()
+    dataset = SceneDataset(TRAIN_IMAGES, config.num_classes)
+    n_boxes = int((dataset.labels.sum(-1) != 0).sum())
+    params0, state0 = seed_trees(weights_path, config.num_classes)
+    flat0 = {**flat_trees(params0), **{f"state/{k}": v for k, v in flat_trees(state0).items()}}
+    log(f"train set-up: YOLOv3-416 ({config.num_classes} classes, blocks "
+        f"{DARKNET53_BLOCKS}) from the seed .weights, {TRAIN_IMAGES} uint8 scenes with "
+        f"{n_boxes} boxes, batch {TRAIN_BATCH} x {TRAIN_SUBDIVISIONS} subdivisions | {card}")
+
+    # the card against the CPU: forward + loss on one micro-batch of 2, fp32
+    sample = [dataset.get(i, (416, 416), 0) for i in range(2)]
+    xb = torch.from_numpy(np.stack([s["img"] for s in sample]))
+    lb = torch.from_numpy(np.stack([s["label"] for s in sample]))
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        move = lambda t: t.to(dev)                     # noqa: E731
+        with torch.no_grad(), full_fp32():
+            loss, (st, _) = loss_fn(map_tree(move, params0), map_tree(move, state0),
+                                    move(xb), move(lb), config)
+        stats[dev] = {k: float(v) for k, v in st.items()} | {"total": float(loss)}
+    rel = abs(stats["cuda"]["total"] - stats["cpu"]["total"]) / abs(stats["cpu"]["total"])
+    check(rel <= 1e-4, f"train loss on the card {stats['cuda']['total']} vs the CPU "
+                       f"{stats['cpu']['total']} (rel {rel:.2e} > 1e-4)")
+    check(all(stats["cuda"][k] == stats["cpu"][k] for k in ("nGT", "nCorrect")),
+          f"train nGT / nCorrect on the card {stats['cuda']} vs the CPU {stats['cpu']}")
+    log(f"train card vs CPU (fp32, TF32 off, 2 images at 416): loss "
+        f"{stats['cuda']['total']:.6f} vs {stats['cpu']['total']:.6f} (rel {rel:.2e} <= 1e-4), "
+        f"nGT {stats['cuda']['nGT']:.0f} nCorrect {stats['cuda']['nCorrect']:.0f} equal | {card}")
+
+    summary = {}
+    final_ckpt = None
+    for dtype_name in ("float32", "bfloat16"):
+        tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS,
+                           compute_dtype=dtype_name)
+        jsonl = os.path.join(work, f"curve_{dtype_name}.jsonl")
+        wdir = os.path.join(work, f"ckpt_{dtype_name}")
+        t0 = time.perf_counter()
+        params, state, opt_state, rec = train(
+            train_data(dataset, TRAIN_STEPS), params0, state0, config, tcfg,
+            recorder=Recorder(jsonl_path=jsonl), model_id=dtype_name, weight_dir=wdir,
+            device="cuda", log_fn=lambda s: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(jsonl) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+              f"train {dtype_name}: finite loss at every net-batch {losses}")
+        check(losses[-1] < losses[0],
+              f"train {dtype_name}: loss on the repeated net-batch falls {losses}")
+        gnorm = float(global_norm(opt_state["trace"]))
+        check(np.isfinite(gnorm) and gnorm > 0,
+              f"train {dtype_name}: momentum (accumulated gradients) finite and non-zero")
+        flat = {**flat_trees(params), **{f"state/{k}": v for k, v in flat_trees(state).items()}}
+        check(all(np.isfinite(v).all() for v in flat.values()),
+              f"train {dtype_name}: params and BN state finite")
+        moved = sum(not np.array_equal(flat[k], flat0[k]) for k in flat0)
+        check(moved == len(flat0), f"train {dtype_name}: {len(flat0) - moved} leaves "
+                                   "of params and BN state did not move")
+        final_ckpt, last = get_latest_checkpoint(dtype_name, wdir)
+        check(last == TRAIN_STEPS - 1, f"train {dtype_name}: final checkpoint {last}")
+        log(f"train {dtype_name}: {TRAIN_STEPS} net-batches of {TRAIN_IMAGES} images "
+            f"({wall:.2f} s with set-up), loss per net-batch "
+            f"{[round(v, 3) for v in losses]}, every param and BN-state leaf moved, "
+            f"momentum norm {gnorm:.4g}, final checkpoint net-batch {last} | {card}")
+
+        # timing: the step alone on one net-batch already on the card
+        opt = make_optimizer(tcfg)
+        step = make_train_step(config, opt, COMPUTE_DTYPES[dtype_name])
+        batch = [dataset.get(i, (416, 416), 0) for i in range(TRAIN_IMAGES)]
+        imgs_d = torch.from_numpy(np.stack([s["img"] for s in batch])).reshape(
+            TRAIN_SUBDIVISIONS, TRAIN_BATCH, 416, 416, 3).cuda()
+        labels_d = torch.from_numpy(np.stack([s["label"] for s in batch])).reshape(
+            TRAIN_SUBDIVISIONS, TRAIN_BATCH, TRAIN_MAX_LABELS, 5).cuda()
+        p, s_, o = params, state, opt_state
+        p, s_, o, _ = step(p, s_, o, imgs_d, labels_d)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            p, s_, o, _ = step(p, s_, o, imgs_d, labels_d)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        summary[dtype_name] = dict(ms=ms, imgs_per_sec=TRAIN_IMAGES * 1000 / ms, peak_gib=peak)
+        log(f"time train {dtype_name} 416: {ms:.3f} ms per net-batch of {TRAIN_IMAGES} "
+            f"({TRAIN_SUBDIVISIONS} x {TRAIN_BATCH}), {TRAIN_IMAGES * 1000 / ms:.2f} train "
+            f"imgs/sec, peak memory {peak:.2f} GiB | {card}")
+        if dtype_name == "bfloat16":
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                p, s_, o, _ = step(p, s_, o, imgs_d, labels_d)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+            total = sum(e.self_device_time_total for e in ev)
+            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:5]
+            log("train bf16 net-batch top 5 device ops (torch.profiler, self time): "
+                + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1000:.3f} ms "
+                            f"x{e.count}" for e in top)
+                + f"; device busy {total / 1000:.3f} ms | {card}")
+            summary[dtype_name]["busy_ms"] = total / 1000
+        del p, s_, o, imgs_d, labels_d
+        torch.cuda.empty_cache()
+
+    # resume equals one go, in a child with deterministic algorithms
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    resume_dir = os.path.join(work, "resume")
+    os.makedirs(resume_dir, exist_ok=True)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-check",
+                          weights_path, resume_dir], env=env, capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"resume check failed: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if res["nondeterministic_ops"]:
+        check(res["max_abs_diff"] <= 1e-6,
+              f"resume vs one go: {res['max_abs_diff']} > 1e-6 with ops without a "
+              f"deterministic form {res['nondeterministic_ops']}")
+        verdict = (f"within {res['max_abs_diff']:.2e} (<= 1e-6; no deterministic CUDA form: "
+                   f"{res['nondeterministic_ops']})")
+    else:
+        check(res["bit_equal"], f"resume vs one go not bit-equal ({res['max_abs_diff']})")
+        verdict = "bit-equal"
+    log(f"train resume == one go (fp32, 2 net-batches vs 1 + checkpoint + resume + 1, "
+        f"deterministic algorithms): params and BN state {verdict} | {card}")
+
+    # multi-scale: dims from the sampler in 320..608, one per net-batch
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS,
+                       compute_dtype="bfloat16")
+    lines = []
+    data = train_data(dataset, 2, dim=None, rand_dim_interval=TRAIN_BATCH * TRAIN_SUBDIVISIONS,
+                      seed=3)
+    dims = sorted({d[0] for d in data.sampler.dims})
+    _, _, _, rec = train(data, params0, state0, config, tcfg, device="cuda",
+                         log_fn=lines.append)
+    seen = [int(ln.split(" dim ")[1].split()[0]) for ln in lines if ln.startswith("net_batch")]
+    check(len(seen) == 2 and all(320 <= d <= 608 and d % 32 == 0 for d in seen)
+          and np.isfinite(rec.current_stats["loss"]),
+          f"train multi-scale: dims {seen}, loss {rec.current_stats['loss']}")
+    log(f"train multi-scale (bf16): 2 net-batches at dims {seen} (sampler schedule {dims}), "
+        f"final loss {rec.current_stats['loss']:.3f} | {card}")
+
+    # serve the final checkpoint on the kernels
+    counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
+                "conv3x3_p2d": FC.conv3x3_p2d}
+    want = {"fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0),
+            "bf16": {k: BF16_LAUNCHES[k] for k in counters}}
+    for precision in ("fp32", "bf16"):
+        det = Detector.from_checkpoint(final_ckpt, config, device="cuda", precision=precision)
+        for c in counters.values():
+            c.launches = 0
+        rows = det.detect(imgs)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        check(launches == want[precision],
+              f"trained checkpoint {precision} launches {launches}, want {want[precision]}")
+        check_rows(rows, imgs, config.num_classes)
+        note = ""
+        if precision == "fp32":
+            x, _ = det.preprocess(imgs)
+            with torch.inference_mode():
+                heads, plain = det.model(x), det.model(x, plain=True)
+            for h, p in zip(heads, plain):
+                torch.testing.assert_close(h, p, rtol=1e-3, atol=1e-3 * p.abs().max().item())
+            # five net-batches push every score under the display threshold,
+            # so the rows are also compared at one in the widest gap of the
+            # plain heads' scores that leaves SERVE_ROWS candidates
+            thr = row_threshold(plain, config)
+            low = [det.detect(imgs, conf_thr=thr, plain=p) for p in (False, True)]
+            check(all(same_rows(a, b) for a, b in zip(rows, det.detect(imgs, plain=True)))
+                  and all(same_rows(a, b) for a, b in zip(*low))
+                  and sum(len(r) for r in low[0]) > 0,
+                  "trained checkpoint fp32 rows equal on kernel and plain paths")
+            note = (f", rows equal to the plain path's (also at conf_thr {thr:.4g}: "
+                    f"{[len(r) for r in low[0]]} per image), heads within rtol 1e-3")
+        log(f"train serve {os.path.basename(final_ckpt)} {precision}: Detector.from_checkpoint"
+            f" on the card, launches {launches}, detections per image "
+            f"{[len(r) for r in rows]}{note} | {card}")
+        del det
+        torch.cuda.empty_cache()
+
+    summary["c1_new_ms"], summary["c1_old_ms"] = c1_gate(card, weights_path, imgs)
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s | {card}")
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -1192,6 +1617,7 @@ def main():
         launches, fp32_rows = main_path(card, weights_path, imgs)
         launches_i8, qtree, x_i8 = int8_path(card, weights_path, imgs, fp32_rows)
         options = serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8)
+        training_path(card, weights_path, imgs, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1226,4 +1652,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--resume-check"]:
+        resume_check(*sys.argv[2:4])
+    else:
+        main()

@@ -117,8 +117,20 @@ def test_params_from_numpy_is_bit_equal(jax_tree):
 
 
 def test_port_imports_without_jax():
-    code = ("import sys, yolo_v3_tpu_torch.detector; "
-            "assert 'jax' not in sys.modules, 'jax was imported'")
+    """Every module of the port imports, in a fresh interpreter, without
+    pulling in JAX, optax or the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys, yolo_v3_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(yolo_v3_tpu_torch.__path__,\n"
+        "                                             'yolo_v3_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for want in ('yolo_v3_tpu_torch.train.loop', 'yolo_v3_tpu_torch.data.loader',\n"
+        "             'yolo_v3_tpu_torch.models.loss', 'yolo_v3_tpu_torch.detector'):\n"
+        "    assert want in names, want\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'yolo_v3_tpu')]\n"
+        "assert not bad, bad\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=repo)

@@ -20,6 +20,7 @@ from yolo_v3_tpu_torch.ops.fused_res_block import (
     fused_res_block,
     fused_res_block_ref,
 )
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 pytestmark = pytest.mark.cuda
 
@@ -660,3 +661,42 @@ def test_fp32_heads_do_not_depend_on_global_tf32(dev):
     for on, off in zip(heads[True], heads[False]):
         scale = off.abs().max().item()
         torch.testing.assert_close(on, off, rtol=1e-5, atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 stem and stride-2 downs round once (the single-rounding conv of
+# the folded forward, tests/test_torch_bf16_single_rounding.py on the CPU)
+# ---------------------------------------------------------------------------
+
+# (cin, cout, stride, H = W) of the stem and the 5 downs of YOLOv3-416
+C1_CONVS = [(3, 32, 1, 416), (32, 64, 2, 416), (64, 128, 2, 208), (128, 256, 2, 104),
+            (256, 512, 2, 52), (512, 1024, 2, 26)]
+
+
+def _ordered_bf16(a):
+    bits = (a.float().view(torch.int32) >> 16).to(torch.int64) & 0xFFFF
+    return torch.where(bits >= 0x8000, -(bits & 0x7FFF), bits)
+
+
+@pytest.mark.parametrize("cin,cout,stride,hw", C1_CONVS,
+                         ids=["stem", "down0", "down1", "down2", "down3", "down4"])
+def test_bf16_stem_and_downs_round_once_on_the_card(dev, cin, cout, stride, hw):
+    """Against an fp32 conv with TF32 off, bias and leaky in fp32, one
+    rounding: any difference on under 0.1% of outputs, and none beyond one
+    bf16 step plus 2^-12 (fp32 summation order near zero)."""
+    gen = torch.Generator().manual_seed(cin)
+    w = (torch.randn(3, 3, cin, cout, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
+    b = (torch.randn(cout, generator=gen) * 0.3).to(torch.bfloat16)
+    x = torch.randn(2, cin, hw, hw, generator=gen).to(torch.bfloat16)
+    conv = D._ConvBias({"w": w, "b": b}, stride=stride).to(dev)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = conv(x)
+        with full_fp32():
+            ref = torch.nn.functional.conv2d(x.float(), conv.weight.float(), None, stride, 1)
+        ref = torch.nn.functional.leaky_relu(ref + conv.bias.float()[:, None, None], 0.1)
+        ref = ref.to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
+    assert ((got.float() - ref.float()).abs() <= step + 2.0 ** -12).all()
+    assert (_ordered_bf16(got) != _ordered_bf16(ref)).float().mean().item() < 1e-3

@@ -1,0 +1,421 @@
+"""The port's optimizer and training step against the JAX package's
+``schedule_multiplier``, ``make_optimizer`` and ``make_train_step`` on the
+same params (JAX ``init_yolonet``, carried over by ``params_from_numpy``),
+images and labels, and the step's own contracts (subdivisions, the uint8
+feed, remat)."""
+
+import contextlib
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from yolo_v3_tpu.models import darknet as JD
+from yolo_v3_tpu.models import loss as JL
+from yolo_v3_tpu.train import optimizer as JO
+from yolo_v3_tpu.train import step as JS
+from yolo_v3_tpu.utils import config as JC
+from yolo_v3_tpu_torch.models import weights as TW
+from yolo_v3_tpu_torch.train import optimizer as TO
+from yolo_v3_tpu_torch.train import step as TS
+from yolo_v3_tpu_torch.utils import config as TC
+
+BLOCKS = (1, 1, 1, 1, 1)
+DIM = 64
+TRAIN = dict(lr=1e-3, backbone_lr=1e-4)      # tests/test_train_step.py's rates
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads: the suite runs several workers at once, and a
+    CPU training step at full width oversubscribes the cores with more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_batch(seed, S=2, B=2, dim=DIM, T=10):
+    """``tests/test_train_step.py``'s net-batch fixture."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 1, (S, B, dim, dim, 3)).astype(np.float32)
+    labels = np.zeros((S, B, T, 5), np.float32)
+    labels[..., :2, 0] = rng.integers(0, 2, (S, B, 2))
+    labels[..., :2, 1:3] = rng.uniform(0.2, 0.8, (S, B, 2, 2))
+    labels[..., :2, 3:5] = rng.uniform(0.1, 0.5, (S, B, 2, 2))
+    return imgs, labels
+
+
+@pytest.fixture(scope="module")
+def net():
+    jp, js = JD.init_yolonet(jax.random.PRNGKey(0), num_classes=2, blocks=BLOCKS)
+    return jax.tree.map(np.asarray, jp), jax.tree.map(np.asarray, js)
+
+
+def _torch(tree):
+    return TW.params_from_numpy(tree)
+
+
+def _flat(tree):
+    """'/'-joined leaf path -> numpy array, for a tree of tensors or arrays."""
+    if isinstance(jax.tree.leaves(tree)[0], torch.Tensor):
+        return {k: np.asarray(v) for k, v in TW._flatten_with_names(tree).items()}
+    return _flat(TW.params_from_numpy(jax.tree.map(np.asarray, tree)))
+
+
+class _Float64:
+    """``jax.numpy`` with float32 standing for float64: the reference's own
+    code, evaluated in float64 (it names float32 explicitly for its BN math
+    and loss)."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def reference_in_float64():
+    saved = JD.jnp, JL.jnp
+    with jax.enable_x64(True):
+        JD.jnp = JL.jnp = _Float64()
+        try:
+            yield
+        finally:
+            JD.jnp, JL.jnp = saved
+
+
+@contextlib.contextmanager
+def port_in_float64():
+    """The port's step on float64 trees and batches, evaluated in float64:
+    ``Tensor.float()``, which the port calls for its BN math, loss and
+    clip, leaves a float64 tensor as it is inside the block."""
+    to_float = torch.Tensor.float
+
+    def keep_float64(self, *args, **kw):
+        return self if self.dtype == torch.float64 else to_float(self, *args, **kw)
+
+    torch.Tensor.float = keep_float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float
+
+
+def port_float64_run(p, s, imgs, labels, steps, config=None, **train):
+    """``steps`` port steps in float64 on one repeated net-batch: the first
+    step's (params, state, stats) and every step's loss."""
+    def f64(tree):
+        return TS.D.map_tree(lambda a: a.to(torch.float64), _torch(tree))
+
+    opt = TO.make_optimizer(TC.TrainConfig(**train))
+    step = TS.make_train_step(config or TC.YoloConfig(num_classes=2, img_dim=DIM), opt,
+                              compute_dtype=torch.float64)
+    tp, ts = f64(p), f64(s)
+    to = opt.init(tp)
+    x, y = (torch.from_numpy(a).to(torch.float64) for a in (imgs, labels))
+    first, losses = None, []
+    with port_in_float64():
+        for _ in range(steps):
+            tp, ts, to, stats = step(tp, ts, to, x, y)
+            first = first or (tp, ts, stats)
+            losses.append(float(stats["loss"]))
+    return first, np.array(losses)
+
+
+def _port_step(compute_dtype=torch.float32, remat=False, **train):
+    opt = TO.make_optimizer(TC.TrainConfig(**train))
+    return opt, TS.make_train_step(TC.YoloConfig(num_classes=2, img_dim=DIM), opt,
+                                   compute_dtype=compute_dtype, remat=remat)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("train", [
+    dict(burn_in=10, burn_in_power=4.0, lr_steps=(15, 25), lr_step_scales=(0.1, 0.5)),
+    dict(burn_in=0, lr_steps=(3,), lr_step_scales=(0.2,)),
+    dict(burn_in=7, burn_in_power=2.5),
+])
+def test_schedule_multiplier_equals_jax(train):
+    got = TO.schedule_multiplier(TC.TrainConfig(**train))
+    want = JO.schedule_multiplier(JC.TrainConfig(**train))
+    for count in range(30):
+        assert float(got(count)) == float(want(count)), count
+
+
+def _param_tree(rng):
+    """A small tree with the YOLOv3 tree's two groups: the optimizer reads
+    nothing of it but its leaves and the ``backbone`` key."""
+    def leaf(*shape):
+        return (rng.normal(size=shape) * 0.05).astype(np.float32)
+
+    return {"backbone": {"stem": {"w": leaf(3, 3, 3, 8), "bn": {"scale": leaf(8)}},
+                         "stage0": {"down": {"w": leaf(3, 3, 8, 16)}}},
+            "head0": {"conv0": {"w": leaf(1, 1, 16, 8), "bn": {"bias": leaf(8)}},
+                      "det": {"w": leaf(1, 1, 8, 21), "b": leaf(21)}},
+            "up0": {"conv": {"w": leaf(1, 1, 8, 4)}}}
+
+
+@pytest.mark.parametrize("train", [
+    dict(lr=1e-3, backbone_lr=1e-4),
+    dict(lr=1e-2, backbone_lr=0.0, weight_decay=0.0),
+    dict(lr=1e-3, freeze_backbone=True, burn_in=3),
+], ids=["two_groups", "backbone_lr_0", "frozen_burn_in"])
+def test_sgd_matches_optax_chain_over_five_updates(train):
+    """Clip (the gradients' global norm crosses 1000 between updates),
+    weight decay, momentum, the two learning rates and a frozen backbone,
+    against the JAX ``make_optimizer`` over 5 updates, rtol 1e-6 of each
+    element or, for elements near zero, of its leaf's largest (the two
+    differ by up to 2.5 float32 steps of that largest value: optax orders
+    the clip's multiply and divide differently)."""
+    rng = np.random.default_rng(0)
+    p = _param_tree(rng)
+    tx = JO.make_optimizer(p, JC.TrainConfig(**train))
+    opt = TO.make_optimizer(TC.TrainConfig(**train))
+    jparams, jstate = jax.tree.map(jnp.asarray, p), tx.init(jax.tree.map(jnp.asarray, p))
+    tparams = _torch(p)
+    tstate = opt.init(tparams)
+    n = sum(a.size for a in jax.tree.leaves(p))
+    norms = []
+    for i in range(5):
+        # global norms ~ 200, 1800, 200, 1800, 200: the clip binds on 2 of 5
+        scale = (1800.0 if i % 2 else 200.0) / np.sqrt(n)
+        grads = jax.tree.map(
+            lambda a: rng.standard_normal(a.shape, dtype=np.float32) * np.float32(scale), p)
+        norms.append(float(TO.global_norm(_torch(grads))))
+        updates, jstate = tx.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tparams, tstate = opt.update(_torch(grads), tstate, tparams)
+    assert min(norms) < 1000 < max(norms)
+    assert tstate["count"] == 5
+    got, want = _flat(tparams), _flat(jparams)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                   atol=1e-6 * np.abs(want[k]).max(), err_msg=k)
+    if train.get("freeze_backbone"):
+        for k in got:
+            if k.startswith("backbone/"):
+                np.testing.assert_array_equal(got[k], _flat(p)[k])
+        assert "backbone" not in tstate["trace"]
+
+
+def test_s2d_entry_is_refused():
+    with pytest.raises(ValueError, match="Do not port"):
+        TC.TrainConfig(s2d_entry=True)
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_step_run(net):
+    """Five S = 2 net-batches on one repeated net-batch through the JAX
+    ``make_train_step``, in float32 and evaluated in float64: each one's
+    first step (params, state, opt state, stats) and every step's loss."""
+    p, s = net
+    imgs, labels = tiny_batch(0)
+    runs = []
+    for wide in (False, True):
+        with reference_in_float64() if wide else contextlib.nullcontext():
+            tx = JO.make_optimizer(p, JC.TrainConfig(**TRAIN))
+            step = JS.make_train_step(JC.YoloConfig(num_classes=2, img_dim=DIM), tx)
+            to = functools.partial(jax.tree.map,
+                                   lambda a: jnp.asarray(a, jnp.float64 if wide else a.dtype))
+            carry, x, y = (to(p), to(s), tx.init(to(p))), to(imgs), to(labels)
+            first, losses = None, []
+            for _ in range(5):
+                out = step(*carry, x, y)
+                carry = out[:3]
+                first = first or jax.tree.map(np.asarray, out)
+                losses.append(float(out[3]["loss"]))
+        runs.append((first, np.array(losses)))
+    return runs
+
+
+def _check_stats(stats, jstats, rtol):
+    for k, v in jstats.items():
+        if k in ("nCorrect", "nGT"):
+            assert float(stats[k]) == float(v), k
+        else:
+            np.testing.assert_allclose(float(stats[k]), float(v), rtol=rtol, err_msg=k)
+
+
+def _deltas(new, old):
+    return {k: v - old[k] for k, v in _flat(new).items()}
+
+
+def test_step_matches_jax_make_train_step_in_float64(net, jax_step_run):
+    """The port's S = 2 step and the JAX ``make_train_step``, both evaluated
+    in float64, where neither carries float32 rounding: loss and stats
+    within rtol 1e-6 (counts equal), the new BN state within rtol 1e-6, and
+    each param's update (new - old) within rtol 1e-6 of the reference's
+    plus 1e-6 of its leaf's largest.  Measured: updates within 2e-11 of
+    their leaf's largest, losses within 1e-14."""
+    p, s = net
+    imgs, labels = tiny_batch(0)
+    (tp, ts, stats), _ = port_float64_run(p, s, imgs, labels, 1, **TRAIN)
+    _, ((p64, s64, _, jstats), _) = jax_step_run
+    _check_stats(stats, jstats, 1e-6)
+    got, want = _flat(ts), _flat(s64)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-12, err_msg=k)
+    p0 = _flat(_torch(p))
+    got, want = _deltas(tp, p0), _deltas(p64, p0)
+    assert all(np.abs(w).max() > 0 for w in want.values())
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                   atol=1e-6 * np.abs(want[k]).max(), err_msg=k)
+
+
+def test_step_matches_jax_make_train_step(net, jax_step_run):
+    """The port's float32 step against the JAX one in float32: loss and
+    stats within rtol 1e-4 (counts equal), the new BN state within rtol
+    1e-4 / atol 1e-5.  The params' updates (new - old) are held to the
+    reference's evaluated in float64: on this fixture (BN over 8 values a
+    channel at the 2 x 2 grids) float32 gradients carry errors of up to 5%
+    of a leaf's largest (the reference's and the port's on
+    stage1/res0/conv2), so no float32 update meets 1e-4 of the float64 one,
+    and which leaves a float32 run misses most differs from run to run.
+    Each leaf's error is taken relative to its largest float64 update; the
+    largest and the median of those over the tree must be no more than
+    twice the reference's own float32 ones (measured: largest 5.4% both,
+    median 0.15% for the port, 0.39% for the reference).  The float64 test
+    above holds the step's math."""
+    p, s = net
+    imgs, labels = tiny_batch(0)
+    opt, step = _port_step(**TRAIN)
+    tp, ts, to, stats = step(_torch(p), _torch(s), opt.init(_torch(p)),
+                             torch.from_numpy(imgs), torch.from_numpy(labels))
+    ((jp, js, _, jstats), _), ((p64, _, _, _), _) = jax_step_run
+    _check_stats(stats, jstats, 1e-4)
+    got, want = _flat(ts), _flat(js)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    p0 = _flat(_torch(p))
+    want64 = _deltas(p64, p0)
+
+    def leaf_errors(new):
+        d = _deltas(new, p0)
+        return np.array([np.abs(d[k] - w).max() / np.abs(w).max() for k, w in want64.items()])
+
+    got, ref = leaf_errors(tp), leaf_errors(jp)
+    assert got.max() <= 2 * ref.max(), (got.max(), ref.max())
+    assert np.median(got) <= 2 * np.median(ref), (np.median(got), np.median(ref))
+    assert to["count"] == 1
+
+
+def test_step_equals_manual_micro_batch_loop(net):
+    """The S = 2 step == two ``loss_fn`` forwards and backwards by hand
+    (state threaded, gradients summed) and one optimizer update; the BN
+    state after it is the second micro-batch's."""
+    p, s = net
+    imgs, labels = tiny_batch(1)
+    opt, step = _port_step(**TRAIN)
+    tp, ts, _, _ = step(_torch(p), _torch(s), opt.init(_torch(p)),
+                        torch.from_numpy(imgs), torch.from_numpy(labels))
+    leaves = TS.D.map_tree(lambda t: t.requires_grad_(True), _torch(p))
+    state = _torch(s)
+    cfg = TC.YoloConfig(num_classes=2, img_dim=DIM)
+    for i in range(2):
+        loss, (_, state) = TS.loss_fn(leaves, state, torch.from_numpy(imgs[i]),
+                                      torch.from_numpy(labels[i]), cfg)
+        loss.backward()
+    grads = TS.D.map_tree(lambda t: t.grad, leaves)
+    want_p, _ = opt.update(grads, opt.init(_torch(p)),
+                           TS.D.map_tree(lambda t: t.detach(), leaves))
+    for k, v in _flat(tp).items():
+        np.testing.assert_array_equal(v, _flat(want_p)[k], err_msg=k)
+    for k, v in _flat(ts).items():
+        np.testing.assert_array_equal(v, _flat(state)[k], err_msg=k)
+
+
+def test_uint8_feed_equals_float(net):
+    """uint8 images normalized on the device as float32 / 255 give the step
+    the float feed's numbers (up to the divide's rounding)."""
+    p, s = net
+    rng = np.random.default_rng(2)
+    u8 = rng.integers(0, 256, (2, 2, DIM, DIM, 3), dtype=np.uint8)
+    _, labels = tiny_batch(2)
+    opt, step = _port_step(**TRAIN)
+    outs = [step(_torch(p), _torch(s), opt.init(_torch(p)), torch.from_numpy(x),
+                 torch.from_numpy(labels))
+            for x in (u8, u8.astype(np.float32) / 255.0)]
+    np.testing.assert_allclose(float(outs[0][3]["loss"]), float(outs[1][3]["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(_flat(outs[0][0])), jax.tree.leaves(_flat(outs[1][0]))):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_remat_is_bit_equal(net, compute_dtype):
+    p, s = net
+    imgs, labels = tiny_batch(3)
+    outs = []
+    for remat in (False, True):
+        opt, step = _port_step(compute_dtype=compute_dtype, remat=remat, **TRAIN)
+        outs.append(step(_torch(p), _torch(s), opt.init(_torch(p)),
+                         torch.from_numpy(imgs), torch.from_numpy(labels)))
+    for i in (0, 1):
+        a, b = _flat(outs[0][i]), _flat(outs[1][i])
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert float(outs[0][3]["loss"]) == float(outs[1][3]["loss"])
+
+
+def test_bf16_step_keeps_fp32_masters_and_moves(net, monkeypatch):
+    """Every conv of both micro-batches runs on bf16 operands; the master
+    params, the BN state and the loss stay float32."""
+    p, s = net
+    imgs, labels = tiny_batch(4)
+    opt, step = _port_step(compute_dtype=torch.bfloat16, **TRAIN)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(x, w, *args, **kw):
+        seen.append((x.dtype, w.dtype))
+        return conv2d(x, w, *args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    tp, ts, _, stats = step(_torch(p), _torch(s), opt.init(_torch(p)),
+                            torch.from_numpy(imgs), torch.from_numpy(labels))
+    n_convs = len(TS.D.conv_layer_paths(blocks=BLOCKS))
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * (2 * n_convs)
+    assert stats["loss"].dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(tp))
+    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(ts))
+    assert np.isfinite(float(stats["loss"]))
+    assert any(np.abs(a - b).max() > 0 for a, b in zip(_flat(tp).values(), _flat(p).values()))
+
+
+def test_five_net_batches_track_jax_loss_trajectory(net, jax_step_run):
+    """Five steps on one repeated net-batch at the JAX tests' rates: the
+    port's losses, evaluated in float64, equal the JAX step's evaluated in
+    float64 within rtol 1e-6 at every step (measured: within 1e-12), and
+    the loss falls (200 -> 14) in float64 and in the port's float32 run.
+    The float32 runs are not compared step by step: on this fixture (BN
+    over 8 values a channel at the 2 x 2 grids) float32 gradients are a few
+    % off (see the step test), and by step 4 the JAX float32 losses sit up
+    to 1.2% and the port's up to 4.5% from the float64 ones
+    (``scripts/train_trajectory_noise.py``)."""
+    p, s = net
+    imgs, labels = tiny_batch(0)
+    _, got64 = port_float64_run(p, s, imgs, labels, 5, **TRAIN)
+    _, (_, want64) = jax_step_run
+    np.testing.assert_allclose(got64, want64, rtol=1e-6)
+    assert got64[-1] < 0.5 * got64[0]
+    opt, step = _port_step(**TRAIN)
+    tp, ts = _torch(p), _torch(s)
+    to = opt.init(tp)
+    got = []
+    for _ in range(5):
+        tp, ts, to, stats = step(tp, ts, to, torch.from_numpy(imgs), torch.from_numpy(labels))
+        got.append(float(stats["loss"]))
+    assert np.all(np.isfinite(got)) and got[-1] < 0.5 * got[0]

@@ -145,12 +145,14 @@ class Detector:
     @classmethod
     def from_checkpoint(cls, path: str, config: YoloConfig = YoloConfig(),
                         **kw) -> "Detector":
-        """Load a plain {params, state} npz pytree (either package's)."""
+        """Load a plain {params, state} npz pytree or a composite training
+        checkpoint (either package's; a JAX checkpoint's pickled metadata is
+        skipped, not read)."""
         tree, _ = W.load_pytree(path)
         if "params" not in tree or "state" not in tree:
             raise ValueError(
-                f"{path}: not a {{params, state}} pytree npz (top-level keys "
-                f"{sorted(tree)[:8]})")
+                f"{path}: not a {{params, state}} pytree npz or training checkpoint "
+                f"(top-level keys {sorted(tree)[:8]})")
         return cls(tree["params"], tree["state"], config, **kw)
 
     @classmethod

@@ -1,6 +1,7 @@
 """YOLOv3 model core in PyTorch: Darknet-53 backbone + 3-scale heads.
 
-Port of ``yolo_v3_tpu/models/darknet.py`` (init, BN folding and the folded
+Port of ``yolo_v3_tpu/models/darknet.py`` (init, the training forward with
+BatchNorm in train or eval mode, BN re-estimation, BN folding and the folded
 inference forward).  Parameters are nested dicts of tensors with the JAX
 package's tree layout and HWIO conv weights, so the same trees move between
 the packages (``models/weights.py``).  :class:`YoloNetFolded` takes NHWC
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
-from yolo_v3_tpu_torch.utils.precision import full_fp32
+from yolo_v3_tpu_torch.utils.precision import full_fp32, tf32_conv
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -41,6 +42,13 @@ DARKNET53_BLOCKS: Tuple[int, ...] = (1, 2, 8, 8, 4)
 
 LEAKY_SLOPE = 0.1
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1    # torch BatchNorm2d default: new = (1-m)*old + m*batch
+# The tensor cores truncate their fp32 accumulation, and the rounding points
+# that this moves grow with the sum's length: one TF32 conv over the 4608
+# products of down4 moves 0.38% of its bf16 outputs off the single-rounding
+# result, chunks of 64 input channels (576 products) at most 0.063%, at the
+# forward's shapes on an H100 (scripts/c1_conv_modes.py).
+TF32_K_CHANNELS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -150,10 +158,12 @@ def fold_batchnorm(params: Params, state: State) -> Params:
     return fold(params, state)
 
 
-def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+def map_tree(fn: Callable[..., torch.Tensor], tree, *rest):
+    """``fn`` on the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``), in a tree of the same structure."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_tree(fn, v, *(t[k] for t in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def cast_params(params: Params, dtype: torch.dtype, device=None) -> Params:
@@ -169,8 +179,194 @@ def _num_stages(backbone_params: Params) -> int:
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """2x nearest-neighbour upsample of an NHWC tensor."""
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    """2x nearest-neighbour upsample of an NHWC tensor (a broadcast copy, so
+    its gradient is a plain sum, deterministic on the card too)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+# ---------------------------------------------------------------------------
+# Training forward (the JAX ``apply_yolonet``): conv + BatchNorm + leaky with
+# batch statistics in train mode, running statistics in eval mode.
+# Activations are NCHW tensors in channels_last memory format; params and
+# state are the same trees as above, with HWIO conv weights.
+# ---------------------------------------------------------------------------
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """'SAME' conv of an NCHW x by an HWIO weight, in x's dtype (bf16 out
+    for bf16 operands, as the reference's ``f32_out=False``)."""
+    return F.conv2d(x, w.permute(3, 2, 0, 1), None, stride, (w.shape[0] - 1) // 2)
+
+
+def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
+                  training: bool = False, measure: bool = False):
+    """Bias-less conv + BatchNorm + LeakyReLU(0.1) (the JAX
+    ``conv_bn_leaky``).  The conv's result is rounded to x's dtype, then the
+    BN math runs in fp32 whatever that dtype is.  Train mode normalizes with
+    the batch mean and biased variance and returns running statistics
+    updated as new = 0.9 * old + 0.1 * batch, with the unbiased variance;
+    ``measure`` (BN re-estimation) stores the batch mean and biased variance
+    themselves.  Written out as the reference writes it: with
+    ``F.batch_norm`` instead, the CPU test fixtures' float32 training steps
+    sat further from a float64 evaluation of the reference than its own
+    float32 steps do.  Returns (y in x's dtype, new state)."""
+    y = _conv(x, p["w"], stride).float()
+    if training:
+        var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        m = 1.0 if measure else BN_MOMENTUM
+        batch_var = var.detach() if measure else var.detach() * (n / max(n - 1, 1))
+        new_s = {"mean": (1 - m) * s["mean"] + m * mean.detach(),
+                 "var": (1 - m) * s["var"] + m * batch_var}
+    else:
+        mean, var = s["mean"], s["var"]
+        new_s = s
+    inv = torch.rsqrt(var + BN_EPS) * p["bn"]["scale"]
+    y = (y - mean[:, None, None]) * inv[:, None, None] + p["bn"]["bias"][:, None, None]
+    return F.leaky_relu(y, LEAKY_SLOPE).to(x.dtype), new_s
+
+
+def apply_backbone(params: Params, state: State, x: torch.Tensor,
+                   training: bool = False, measure: bool = False):
+    """Darknet-53 on an NCHW batch; returns the route tensors (c3, c4, c5)
+    at strides 8, 16, 32 and the new backbone state."""
+    new_state: State = {}
+    routes: List[torch.Tensor] = []
+    y, new_state["stem"] = conv_bn_leaky(params["stem"], state["stem"], x, 1,
+                                         training, measure)
+    for i in range(_num_stages(params)):
+        sp, ss = params[f"stage{i}"], state[f"stage{i}"]
+        ns: State = {}
+        y, ns["down"] = conv_bn_leaky(sp["down"], ss["down"], y, 2, training, measure)
+        for b in range(_stage_blocks(sp)):
+            rp, rs = sp[f"res{b}"], ss[f"res{b}"]
+            t, s1 = conv_bn_leaky(rp["conv1"], rs["conv1"], y, 1, training, measure)
+            t, s2 = conv_bn_leaky(rp["conv2"], rs["conv2"], t, 1, training, measure)
+            y = y + t
+            ns[f"res{b}"] = {"conv1": s1, "conv2": s2}
+        new_state[f"stage{i}"] = ns
+        if i >= 2:
+            routes.append(y)
+    return tuple(routes), new_state
+
+
+def apply_head(params: Params, state: State, x: torch.Tensor,
+               training: bool = False, measure: bool = False):
+    """Detection head; returns (raw det NCHW, the 5th conv's output, new
+    state).  The detection conv adds its bias after its result is rounded
+    to x's dtype, as the reference does."""
+    new_state: State = {}
+    y = x
+    for i in range(6):
+        y, new_state[f"conv{i}"] = conv_bn_leaky(params[f"conv{i}"], state[f"conv{i}"],
+                                                 y, 1, training, measure)
+        if i == 4:
+            branch = y
+    det = _conv(y, params["det"]["w"], 1) + params["det"]["b"][:, None, None]
+    return det.to(x.dtype), branch, new_state
+
+
+def apply_yolonet(params: Params, state: State, x: torch.Tensor,
+                  training: bool = False, measure: bool = False):
+    """Full forward (the JAX ``apply_yolonet``): an NHWC image batch in the
+    params' compute dtype -> the three raw heads, coarse first, each
+    [B, H/s, W/s, 3*(5+C)] NHWC, and the new BN state.  An fp32 forward runs
+    with TF32 off (a caller that also runs the backward keeps it off around
+    both, as ``train/step.py`` does)."""
+    with full_fp32():
+        y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        new_state: State = {}
+        (c3, c4, c5), new_state["backbone"] = apply_backbone(
+            params["backbone"], state["backbone"], y, training, measure)
+        det0, br0, new_state["head0"] = apply_head(params["head0"], state["head0"], c5,
+                                                   training, measure)
+        y, s_up0 = conv_bn_leaky(params["up0"]["conv"], state["up0"]["conv"], br0, 1,
+                                 training, measure)
+        new_state["up0"] = {"conv": s_up0}
+        y = torch.cat([_upsample_nchw(y), c4], dim=1)
+        det1, br1, new_state["head1"] = apply_head(params["head1"], state["head1"], y,
+                                                   training, measure)
+        y, s_up1 = conv_bn_leaky(params["up1"]["conv"], state["up1"]["conv"], br1, 1,
+                                 training, measure)
+        new_state["up1"] = {"conv": s_up1}
+        y = torch.cat([_upsample_nchw(y), c3], dim=1)
+        det2, _, new_state["head2"] = apply_head(params["head2"], state["head2"], y,
+                                                 training, measure)
+    return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2)), new_state
+
+
+def recalibrate_bn(params: Params, state: State, batches) -> State:
+    """BN re-estimation (the JAX ``recalibrate_bn``): the running statistics
+    replaced by the mean of the per-batch statistics of ``batches`` (one
+    NHWC tensor or an iterable of equally shaped ones), each measured in a
+    train-mode forward with momentum 1 and the biased variance.  The
+    measuring mode is an argument of the forward, not a global, so calls
+    never see one another's mode, and an error leaves nothing changed."""
+    if isinstance(batches, torch.Tensor):
+        batches = [batches]
+    batches = list(batches)
+    shapes = {tuple(x.shape) for x in batches}
+    if len(shapes) != 1:
+        raise ValueError(f"recalibrate_bn batches must share one shape, got {shapes}")
+    with torch.no_grad():
+        states = [apply_yolonet(params, state, x, training=True, measure=True)[1]
+                  for x in batches]
+    if len(states) == 1:
+        return states[0]
+    return map_tree(lambda *xs: sum(xs) / len(xs), *states)
+
+
+class _TreeModule(nn.Module):
+    """A nested dict of tensors held as a module tree: each leaf a parameter
+    (``as_params``) or a buffer under its key."""
+
+    def __init__(self, tree, as_params: bool):
+        super().__init__()
+        self._keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _TreeModule(v, as_params))
+            elif as_params:
+                self.register_parameter(k, nn.Parameter(v.detach().clone()))
+            else:
+                self.register_buffer(k, v.detach().clone())
+
+    def tree(self):
+        return {k: (getattr(self, k).tree() if isinstance(getattr(self, k), _TreeModule)
+                    else getattr(self, k)) for k in self._keys}
+
+
+class YoloNet(nn.Module):
+    """Training-form YOLOv3: every conv weight, BN scale and bias and
+    detection bias an ``nn.Parameter``, every BN running mean and variance a
+    buffer, laid out as the ``{params, state}`` trees (``param_tree`` /
+    ``state_tree`` return them, ``trees`` detached copies, the constructor
+    takes them).  ``forward(x)`` takes an NHWC batch in the params' dtype
+    and returns the three NHWC raw heads; in train mode it normalizes with
+    batch statistics and updates the buffers, in eval mode it uses them."""
+
+    def __init__(self, params: Params, state: State):
+        super().__init__()
+        self.params = _TreeModule(params, as_params=True)
+        self.stats = _TreeModule(state, as_params=False)
+
+    def param_tree(self) -> Params:
+        return self.params.tree()
+
+    def state_tree(self) -> State:
+        return self.stats.tree()
+
+    def trees(self) -> Tuple[Params, State]:
+        detach = lambda t: t.detach().clone()               # noqa: E731
+        return map_tree(detach, self.param_tree()), map_tree(detach, self.state_tree())
+
+    def forward(self, x: torch.Tensor):
+        raws, new_state = apply_yolonet(self.param_tree(), self.state_tree(), x,
+                                        training=self.training)
+        if self.training:
+            with torch.no_grad():
+                map_tree(lambda buf, new: buf.copy_(new), self.state_tree(), new_state)
+        return raws
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +375,17 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class _ConvBias(nn.Module):
     """Conv + bias (+ LeakyReLU) on NCHW channels_last activations, from an
-    HWIO weight; the output keeps the input's dtype."""
+    HWIO weight; the output keeps the input's dtype.
+
+    In bf16 (the stem and the stride-2 downs) the conv runs in fp32 on the
+    bf16 values, with TF32 allowed for those calls alone (a bf16 value is
+    exact in TF32, so the products are exact), in chunks of
+    ``TF32_K_CHANNELS`` input channels whose partial sums add in fp32; the
+    bias and leaky follow in fp32 and the result is rounded to bf16 once,
+    as the reference's ``_conv_bias_leaky`` does.  The fp32 weight chunks
+    are made once and kept until the weight moves or is written in place
+    (an inference tensor has no version counter: its chunks are made anew
+    on every call, as ``ops/fused_conv.py::k_major`` does)."""
 
     def __init__(self, p: Params, stride: int = 1, leaky: bool = True):
         super().__init__()
@@ -190,10 +396,36 @@ class _ConvBias(nn.Module):
         self.stride = stride
         self.pad = (w.shape[0] - 1) // 2
         self.leaky = leaky
+        self._chunks = None
+
+    def _fp32_chunks(self):
+        w = self.weight
+
+        def make():
+            return [w[:, c:c + TF32_K_CHANNELS].float()
+                    for c in range(0, w.shape[1], TF32_K_CHANNELS)]
+
+        if w.is_inference():
+            return make()
+        key = (w.data_ptr(), w._version)
+        if self._chunks is None or self._chunks[0] != key:
+            self._chunks = (key, make())
+        return self._chunks[1]
 
     def forward(self, x):
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
-        return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
+        if x.dtype != torch.bfloat16:
+            y = F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
+            return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
+        y = None
+        with tf32_conv():
+            for c, w in zip(range(0, x.shape[1], TF32_K_CHANNELS), self._fp32_chunks()):
+                part = F.conv2d(x[:, c:c + TF32_K_CHANNELS].float(), w, None,
+                                self.stride, self.pad)
+                y = part if y is None else y + part
+        y = y + self.bias.float()[:, None, None]
+        if self.leaky:
+            y = F.leaky_relu(y, LEAKY_SLOPE)
+        return y.to(torch.bfloat16)
 
 
 class _ResBlock(nn.Module):

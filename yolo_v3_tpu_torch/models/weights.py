@@ -155,23 +155,34 @@ def save_pytree(tree, path: str, meta: Optional[Dict[str, Any]] = None):
     np.savez(path, **flat)
 
 
-def load_pytree(path: str, device="cpu"):
-    """Load an npz pytree (this package's or the JAX package's) -> (tree of
-    tensors, meta dict or None).  A pickled ``__meta__`` (a composite
-    training checkpoint) is refused rather than unpickled."""
+def read_npz(path: str):
+    """An npz pytree's arrays by '/'-joined leaf path and its JSON
+    ``__meta__`` (or None).  A pickled ``__meta__`` (a JAX composite
+    training checkpoint) is skipped, never unpickled: that would run
+    whatever it names (optax's state classes, so JAX)."""
     with np.load(path if path.endswith(".npz") else path + ".npz",
                  allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
     meta = None
     if "__meta__" in flat:
         raw = bytes(flat.pop("__meta__").tolist())
-        if raw[:1] == b"\x80":
-            raise NotImplementedError(
-                f"{path}: a composite training checkpoint (pickled metadata); "
-                "the port reads those once the training slice lands "
-                "(ROADMAP queue A, item 10)")
-        meta = json.loads(raw.decode())
+        if raw[:1] != b"\x80":              # the pickle protocol marker
+            meta = json.loads(raw.decode())
+    return flat, meta
+
+
+def tree_from_flat(flat: Dict[str, np.ndarray], device="cpu"):
     tree: Dict[str, Any] = {}
     for name, arr in flat.items():
         _set_path(tree, name.split("/"), torch.from_numpy(arr).to(device))
-    return tree, meta
+    return tree
+
+
+def load_pytree(path: str, device="cpu"):
+    """Load an npz pytree (this package's or the JAX package's, a composite
+    training checkpoint of either included) -> (tree of tensors, JSON meta
+    dict or None).  A composite checkpoint gives its ``params``, ``state``
+    (and the port's ``opt``) subtrees; a pickled ``__meta__`` is skipped,
+    not read."""
+    flat, meta = read_npz(path)
+    return tree_from_flat(flat, device), meta

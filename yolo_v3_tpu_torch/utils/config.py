@@ -133,17 +133,17 @@ class TrainConfig:
     dim_min_mult: int = 10             # dims = randint(10, 20) * 32 => 320..608
     dim_max_mult: int = 20
     seed: int = 0
-    # "float32" (reference-exact) or "bfloat16" (mixed precision: bf16
-    # compute, fp32 master params/grads/BN stats — ~3x faster on TPU)
+    # "float32" (reference-exact, TF32 off) or "bfloat16" (mixed
+    # precision: bf16 convs, fp32 master params, gradients, BN statistics
+    # and loss)
     compute_dtype: str = "float32"
-    # rematerialize the forward during backward (jax.checkpoint): activation
-    # memory drops to the layer peak at ~1/3 extra forward FLOPs — the
-    # enabler for large-batch 608 training within one chip's HBM.  Same
-    # graph recomputed, so gradients don't move (tests/test_train_step.py).
+    # recompute the forward during the backward (torch.utils.checkpoint):
+    # activation memory drops to about one micro-batch's layer peak for one
+    # more forward's work; the same graph is recomputed, so gradients do not
+    # move (tests/test_torch_train_step.py)
     remat: bool = False
-    # run stem + stage0 + stage1.down in the space-to-depth domain (same
-    # math/gradients — darknet.apply_s2d_entry_train; kills the tiny-channel
-    # MXU starvation on the training path like the serving path's fix)
+    # the space-to-depth training entry of the JAX package; not ported
+    # (ROADMAP, "Do not port"), so True raises
     s2d_entry: bool = False
 
     # LR schedule in net-batches: darknet's COCO recipe (which the reference
@@ -160,6 +160,12 @@ class TrainConfig:
     burn_in_power: float = 4.0
     lr_steps: Tuple[int, ...] = ()     # net-batch boundaries
     lr_step_scales: Tuple[float, ...] = ()  # multiplier applied at each step
+
+    def __post_init__(self):
+        if self.s2d_entry:
+            raise ValueError(
+                "TrainConfig.s2d_entry: the space-to-depth training entry is not "
+                "ported (ROADMAP, queue A, 'Do not port')")
 
 
 def anchors_flat(anchors: Sequence[Tuple[float, float]]) -> Tuple[float, ...]:

@@ -8,6 +8,12 @@ covers the legacy switches and, where this torch has it, the
 ``fp32_precision`` API.  The legacy getters raise when the two APIs were
 mixed (say cuDNN's conv and RNN flags differ); a switch that cannot be read
 is left alone, and the ``fp32_precision`` switch beside it turns TF32 off.
+
+:func:`tf32_conv` does the opposite for cuDNN convolutions alone: it allows
+TF32 inside a block.  The bf16 forward uses it for convolutions whose fp32
+operands hold bf16 values, which TF32 represents exactly, so the products
+are exact and the sums fp32 (the tensor cores truncate a long sum, so the
+caller keeps each one short: ``models/darknet.py::TF32_K_CHANNELS``).
 """
 
 from __future__ import annotations
@@ -18,41 +24,56 @@ import torch
 
 
 def _switches():
-    """(getter, setter, off value) of every switch, the legacy ones first, so
-    that restoring in this order leaves the detailed new-API values last."""
+    """(getter, setter, off value, on value, whether it is a convolution
+    switch) of every switch, the legacy ones first, so that restoring in
+    this order leaves the detailed new-API values last."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
 
-    def attr(obj, name, off):
-        return (lambda: getattr(obj, name), lambda v: setattr(obj, name, v), off)
+    def attr(obj, name, off, on, conv):
+        return (lambda: getattr(obj, name), lambda v: setattr(obj, name, v),
+                off, on, conv)
 
-    out = [attr(cudnn, "allow_tf32", False),
+    out = [attr(cudnn, "allow_tf32", False, True, True),
            # the legacy matmul switch: allow_tf32 reads "not highest"
            (torch.get_float32_matmul_precision, torch.set_float32_matmul_precision,
-            "highest")]
+            "highest", "high", False)]
     if hasattr(cudnn, "conv"):
-        out.append(attr(cudnn.conv, "fp32_precision", "ieee"))
+        out.append(attr(cudnn.conv, "fp32_precision", "ieee", "tf32", True))
     try:
         matmul.fp32_precision
     except (AttributeError, RuntimeError):
         pass
     else:
-        out.append(attr(matmul, "fp32_precision", "ieee"))
+        out.append(attr(matmul, "fp32_precision", "ieee", "tf32", False))
     return out
 
 
 @contextlib.contextmanager
-def full_fp32():
-    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block."""
+def _scoped(values):
+    """Set each readable switch to ``values(switch)`` (None: leave it) inside
+    the block; the caller's values come back afterwards."""
     saved = []
-    for get, set_, off in _switches():
+    for sw in _switches():
+        get, set_ = sw[0], sw[1]
         try:
-            saved.append((set_, get(), off))
+            saved.append((set_, get(), values(sw)))
         except RuntimeError:      # a legacy getter after mixed APIs
             pass
     try:
-        for set_, _, off in saved:
-            set_(off)
+        for set_, _, value in saved:
+            if value is not None:
+                set_(value)
         yield
     finally:
         for set_, value, _ in saved:
             set_(value)
+
+
+def full_fp32():
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block."""
+    return _scoped(lambda sw: sw[2])
+
+
+def tf32_conv():
+    """TF32 allowed for cuDNN convolutions (only) inside the block."""
+    return _scoped(lambda sw: sw[3] if sw[4] else None)

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and eval paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -66,7 +66,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    bf16 (phase 4's launch counts, fp32 rows and heads against the plain
    path); the bf16 stem and 5 downs against an fp32 single-rounding
    reference with TF32 off (under 0.1% of outputs differ), timed beside the
-   double-rounding bf16 conv + leaky they replace.
+   double-rounding bf16 conv + leaky they replace;
+8. eval and the data engine, on the 24 committed scenes of
+   ``tests/data/torch_scenes`` (list file written at run time), decoded
+   with OpenCV: the card's host has no libjpeg, so the native decode and
+   augment pool (``csrc/yolodata.cc``) is not on this route.  (a) g++,
+   libjpeg and the attempted build of ``csrc/yolodata.cc``, printed;
+   (b) ``evaluate_detector`` at 416, batch 8, eval mode, letterboxed, on
+   the same seed-0 model in int8 on the uint8 feed (phase 4's tree;
+   results.json identical to ``generate_results_file(plain=True)``'s, mAP
+   equal), fp32 (rows equal, mAP within 1e-3) and bf16 (on the scenes in 4
+   orientations, 96 images: heads bit-equal over repeated forwards and
+   within 5e-2 * max|head| of the plain path's, the eval postprocess on
+   them equal on the card and the CPU, row shares and mAP printed), launch
+   counts per batch, and ground truth fed back as detections scoring 1.0;
+   (c) the eval's imgs/sec and host ms per batch (load, detect, readback,
+   rows to JSON) over 42 batches (the scenes repeated), and the device's
+   busy time per batch over a profiled pass of 6; (d) ``DataHelper`` over
+   a ``ListDataset`` with ``training_transform`` (uint8 feed) on the
+   seeded multi-scale schedule: two runs bit-identical, labels bit-equal
+   to the committed ``expected_labels.npz`` (made by the JAX package's
+   Python path), samples/sec over 51 batches with 1 and 2 worker
+   processes, and ``train()`` (bf16) for 11 net-batches of 8 x 2 from it,
+   ms per net-batch over the last 10.
 
 TF32 is turned off only around this script's own plain references and
 cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
@@ -707,21 +729,28 @@ def check_rows(rows, imgs, num_classes):
         check(np.all((r[:, 5] > 0) & (r[:, 5] <= 1)), "probabilities in (0, 1]")
 
 
+def unmatched(a, b, box_atol=1e-2, prob_atol=1e-4):
+    """Indices of the rows of ``a`` left without a row of ``b`` of the same
+    class, boxes within ``box_atol`` px and probabilities within
+    ``prob_atol`` (each row of ``b`` taken once, in ``a``'s order)."""
+    used = np.zeros(len(b), bool)
+    out = []
+    for i, row in enumerate(a):
+        ok = ((b[:, 0] == row[0]) & ~used
+              & (np.abs(b[:, 1:5] - row[1:5]).max(1) <= box_atol)
+              & (np.abs(b[:, 5:] - row[5:]).max(1) <= prob_atol))
+        if ok.any():
+            used[np.argmax(ok)] = True
+        else:
+            out.append(i)
+    return out
+
+
 def same_rows(a, b, box_atol=1e-2, prob_atol=1e-4):
     """Every row of ``a`` has one row of ``b`` with the same class, boxes
     within ``box_atol`` px and probabilities within ``prob_atol`` (order may
     differ where two scores tie to fp32 noise)."""
-    if a.shape != b.shape:
-        return False
-    used = np.zeros(len(b), bool)
-    for row in a:
-        ok = ((b[:, 0] == row[0]) & ~used
-              & (np.abs(b[:, 1:5] - row[1:5]).max(1) <= box_atol)
-              & (np.abs(b[:, 5:] - row[5:]).max(1) <= prob_atol))
-        if not ok.any():
-            return False
-        used[np.argmax(ok)] = True
-    return True
+    return a.shape == b.shape and not unmatched(a, b, box_atol, prob_atol)
 
 
 def main_path(card, weights_path, imgs):
@@ -827,15 +856,18 @@ def iou_xywh(a, b):
 
 def agreement(ref, rows, same_class=True):
     """Share of ``ref``'s rows with a row of ``rows`` of the same class (any
-    class with ``same_class=False``) at IoU > 0.5 (one to one)."""
+    class with ``same_class=False``) at IoU > 0.5, one to one, each taking
+    its best-IoU free candidate (eval mode keeps many overlapping rows,
+    where the first candidate would take another row's match)."""
     used = np.zeros(len(rows), bool)
     hit = 0
     for r in ref:
-        ok = ~used & (iou_xywh(r[1:5], rows[:, 1:5]) > 0.5)
+        iou = iou_xywh(r[1:5], rows[:, 1:5])
+        ok = ~used & (iou > 0.5)
         if same_class:
             ok &= rows[:, 0] == r[0]
         if ok.any():
-            used[np.argmax(ok)] = True
+            used[np.argmax(np.where(ok, iou, -1.0))] = True
             hit += 1
     return hit / max(len(ref), 1)
 
@@ -933,6 +965,16 @@ def rows_agreement(a, b):
     return tuple(min(agreement(a, b, c), agreement(b, a, c)) for c in (True, False))
 
 
+def counted(counters, fn):
+    """``fn()`` with the kernels' launch counts set to 0 just before it and
+    read just after."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
 def serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8):
     """Phase 6: the uint8 feed, the int8 tree without space-to-depth, the bf16
     Detector without letterbox in display and eval mode, and the global-top-k
@@ -956,14 +998,6 @@ def serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8):
                    "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
     bf_counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
                    "conv3x3_p2d": FC.conv3x3_p2d}
-
-    def counted(counters, fn):
-        """``fn()`` with the counts set to 0 just before it, read just after."""
-        for c in counters.values():
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: c.launches for k, c in counters.items()}
 
     def as_rows(res):
         return [r[:, [6, 0, 1, 2, 3, 5, 4]] for r in P.detections_to_lists(res)]
@@ -1584,6 +1618,344 @@ def training_path(card, weights_path, imgs, work):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: eval and the data engine
+# ---------------------------------------------------------------------------
+
+SCENES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                      "torch_scenes")
+# The route of this phase, fixed by a probe of the card's host: g++ 13.3 but
+# no jpeglib.h and no libjpeg in ldconfig (OpenCV 4.13 headless and Pillow
+# carry private copies, without headers), so the native decode and augment
+# pool (csrc/yolodata.cc) cannot be built there.  The phase decodes with
+# OpenCV: eval through Detector.preprocess, training on DataHelper's Python
+# path.
+EVAL_BATCH = 8
+# the timed eval: the scene list repeated to 42 batches of 8
+EVAL_TIMED_REPEATS = 14
+# the bf16 eval's gates run on the scenes in each of these orientations
+ORIENTATIONS = {"as is": lambda im: im, "mirrored": lambda im: im[:, ::-1],
+                "upside down": lambda im: im[::-1],
+                "transposed": lambda im: im.transpose(1, 0, 2)}
+# phase 8's training schedule (scripts/make_torch_scenes.py SCHEDULE): 3
+# net-batches of 8 x 2, multi-scale, one dim a net-batch
+DATA_SCHEDULE = dict(batch_size=8, seed=12, rand_dim_interval=16)
+DATA_NET_BATCHES = 3
+# the timed data runs: augmentation over 1 + 51 batches at 416, train()
+# over 1 + 10 net-batches
+DATA_TIMED_NET_BATCHES = 26
+TRAIN_TIMED_NET_BATCHES = 11
+
+
+def results_rows(path):
+    """{image_id: [n, 7] rows [cls, x, y, w, h, score, score]} of a results
+    json, in the Detector's row layout (so :func:`same_rows` applies)."""
+    out = {}
+    with open(path) as f:
+        for e in json.load(f):
+            out.setdefault(e["image_id"], []).append(
+                [e["category_id"], *e["bbox"], e["score"], e["score"]])
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def same_results(a, b):
+    ra, rb = results_rows(a), results_rows(b)
+    return sorted(ra) == sorted(rb) and all(same_rows(ra[k], rb[k]) for k in rb)
+
+
+def scene_list(work, repeats=1, name="scenes.txt"):
+    """(list file of the scenes, ``repeats`` times over; the scene paths;
+    the class names)."""
+    img_dir = os.path.join(SCENES, "images")
+    paths = sorted(os.path.join(img_dir, n) for n in os.listdir(img_dir) if n.endswith(".jpg"))
+    lst = os.path.join(work, name)
+    with open(lst, "w") as f:
+        f.write("\n".join(paths * repeats) + "\n")
+    with open(os.path.join(SCENES, "scenes.names")) as f:
+        names = [ln.strip() for ln in f if ln.strip()]
+    return lst, paths, names
+
+
+def host_library(card):
+    """(a) g++, libjpeg and the attempted build of the native pool on this
+    host, printed; the route is OpenCV's whatever they say."""
+    import cv2
+
+    from yolo_v3_tpu_torch.data import native_loader
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                              timeout=60).stdout
+    jpeg = sorted({ln.split("=>")[-1].strip() for ln in ldconfig.splitlines()
+                   if "libjpeg" in ln}) or ["none in ldconfig"]
+    t0 = time.perf_counter()
+    try:
+        native_loader.load_library()
+        build = "ok"
+    except RuntimeError as e:
+        build = "failed: " + next((ln.strip() for ln in str(e).splitlines() if "error" in ln),
+                                  str(e)[:200])
+    log(f"data host: {gxx}; libjpeg {jpeg}; yolodata.cc build {build} "
+        f"({time.perf_counter() - t0:.2f} s) | {card}")
+    log(f"data route (fixed): OpenCV {cv2.__version__} decode; the native decode and "
+        f"augment pool is unverified on the card (no libjpeg on its host) | {card}")
+
+
+def bf16_eval_gates(det, config, scenes):
+    """The bf16 eval's gates on the scenes in every orientation, a batch of
+    8 at a time: heads bit-equal over two forwards and within 5e-2 *
+    max|head| of the plain path's, and the eval postprocess on the same
+    heads equal on the card and on the CPU (a failure names the image and
+    its unmatched rows).  Returns the largest err / max|head| of each head."""
+    from yolo_v3_tpu_torch.ops import postprocess as P
+
+    kw = dict(conf_thr=config.eval_conf_thr, nms_thr=config.eval_nms_thr, is_eval=True)
+
+    def as_rows(res):                      # [x y w h obj prob cls] -> [cls x y w h prob obj]
+        return [r[:, [6, 0, 1, 2, 3, 5, 4]] for r in P.detections_to_lists(res)]
+
+    worst = [0.0] * 3
+    for turn, f in ORIENTATIONS.items():
+        for start in range(0, len(scenes), EVAL_BATCH):
+            imgs = [np.ascontiguousarray(f(im)) for im in scenes[start:start + EVAL_BATCH]]
+            where = f"scenes {start}-{start + len(imgs) - 1} {turn}"
+            x, _ = det.preprocess(imgs)
+            with torch.inference_mode():
+                heads = det.model(x.to(torch.bfloat16))
+                again = det.model(x.to(torch.bfloat16))
+                plain = det.model(x.to(torch.bfloat16), plain=True)
+            check(all(torch.equal(h, g) for h, g in zip(heads, again)),
+                  f"bf16 eval, {where}: the heads of two forwards differ")
+            for i, (h, p) in enumerate(zip(heads, plain)):
+                scale = p.float().abs().max().item()
+                err = (h.float() - p.float()).abs().max().item()
+                check(bool(torch.isfinite(h).all()) and err <= 5e-2 * scale,
+                      f"bf16 eval, {where}: head{i} err {err} > 5e-2 * {scale}")
+                worst[i] = max(worst[i], err / scale)
+            on_card = as_rows(P.postprocess_from_raws(heads, config, 416, **kw))
+            on_cpu = as_rows(P.postprocess_from_raws([h.cpu() for h in heads], config, 416, **kw))
+            for j, (a, b) in enumerate(zip(on_card, on_cpu)):
+                if not same_rows(a, b):
+                    check(False, f"bf16 eval postprocess, {where}, image {start + j}: rows on "
+                          f"the card and on the CPU differ: {unmatched_rows(a, b)}")
+    return [round(w, 4) for w in worst]
+
+
+def unmatched_rows(a, b):
+    """The rows :func:`same_rows` left unmatched, both ways, each with its
+    class, score and rank: a near-tie at the max_detections cut or in NMS
+    shows as two such rows of nearly equal score."""
+    out = [f"{len(a)} vs {len(b)} rows"]
+    for side, x, y in (("card", a, b), ("CPU", b, a)):
+        out += [f"{side} only: class {int(x[i, 0])} score {x[i, 5]:.9g} rank "
+                f"{int((x[:, 5] > x[i, 5]).sum())}" for i in unmatched(x, y)[:8]]
+    return "; ".join(out)
+
+
+def eval_path(card, weights_path, qtree, work):
+    """(b), (c): evaluate_detector at 416 on the scenes in int8 (uint8 feed),
+    fp32 and bf16, each against the same pipeline on the plain path."""
+    from yolo_v3_tpu_torch.data.datasets import ListDataset
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.eval.coco_json import JsonPredictionWriter
+    from yolo_v3_tpu_torch.eval.cocoeval import evaluate_map
+    from yolo_v3_tpu_torch.eval.pipeline import STAGES, evaluate_detector, generate_results_file
+    from yolo_v3_tpu_torch.ops import entry_kernel as EK
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    config = YoloConfig()
+    lst, paths, names = scene_list(work)
+    timed, _, _ = scene_list(work, EVAL_TIMED_REPEATS, "timed.txt")
+    profiled, _, _ = scene_list(work, 2, "profiled.txt")
+    n_batches = -(-len(paths) // EVAL_BATCH)
+    n_timed = -(-len(paths) * EVAL_TIMED_REPEATS // EVAL_BATCH)
+    route = dict(batch_size=EVAL_BATCH, is_letterbox=True, use_native_loader=False)
+    counters = {
+        "int8": {"fused_entry": EK.fused_entry, "conv1x1_p2d": FC.conv1x1_p2d,
+                 "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d},
+        "fp32": {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
+                 "conv3x3_p2d": FC.conv3x3_p2d},
+        "bf16": {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
+                 "conv3x3_p2d": FC.conv3x3_p2d}}
+    per_forward = {"int8": INT8_LAUNCHES,
+                   "fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0),
+                   "bf16": BF16_LAUNCHES}
+    scenes = [ListDataset(lst).load_raw(i)["img"] for i in range(len(paths))]
+    for precision in ("int8", "fp32", "bf16"):
+        if precision == "int8":
+            det = Detector(None, None, config, quantized_tree=qtree, resize_on_device=False,
+                           device="cuda")
+            check(det._u8_feed, "int8 eval runs on the uint8 feed")
+        else:
+            det = Detector.from_darknet_weights(weights_path, config, device="cuda",
+                                                precision=precision)
+        wdir = os.path.join(work, f"eval_{precision}")
+        os.makedirs(wdir)
+        t0 = time.perf_counter()
+        m_ap, launches = counted(counters[precision],
+                                 lambda: evaluate_detector(det, lst, names, wdir, **route))
+        first_s = time.perf_counter() - t0
+        want = {k: v * n_batches for k, v in per_forward[precision].items()}
+        check(launches == want, f"eval {precision}: launches {launches}, want {want}")
+        res, gt = os.path.join(wdir, "results.json"), os.path.join(wdir, "annotations.json")
+        res_plain = os.path.join(wdir, "results_plain.json")
+        generate_results_file(det, lst, names, res_plain, progress=False, plain=True, **route)
+        m_ap_plain = evaluate_map(gt, res_plain)
+        rows = results_rows(res)
+        n_rows = sum(len(r) for r in rows.values())
+        check(n_rows > 0 and all(np.isfinite(r).all() for r in rows.values()),
+              f"eval {precision}: finite rows")
+        if precision == "int8":
+            with open(res) as f, open(res_plain) as g:
+                check(f.read() == g.read(), "int8 eval: results.json differs from the plain path's")
+            check(m_ap == m_ap_plain, f"int8 eval: mAP {m_ap} vs plain {m_ap_plain}")
+            verdict = "results.json identical to the plain path's, mAP equal"
+        elif precision == "fp32":
+            check(same_results(res, res_plain), "fp32 eval: rows differ from the plain path's")
+            check(abs(m_ap - m_ap_plain) <= 1e-3, f"fp32 eval: mAP {m_ap} vs plain {m_ap_plain}")
+            verdict = ("rows equal to the plain path's (boxes atol 1e-2 px, scores atol 1e-4), "
+                       "mAP within 1e-3")
+        else:
+            worst = bf16_eval_gates(det, config, scenes)
+            rp = results_rows(res_plain)
+            none = np.zeros((0, 7))
+            shares = [rows_agreement(rows.get(k, none), rp.get(k, none))[0]
+                      for k in sorted(set(rows) | set(rp))]
+            verdict = (f"on the scenes in {len(ORIENTATIONS)} orientations "
+                       f"({len(ORIENTATIONS) * len(scenes)} images): heads bit-equal over two "
+                       f"forwards and within 5e-2*max|head| of the plain path's (largest err / "
+                       f"max|head| {worst}), eval postprocess on the same heads equal on the "
+                       f"card and the CPU; kernel vs plain rows (information, not a gate): share "
+                       f"matched one to one (same class, best IoU > 0.5) per image, mean "
+                       f"{np.mean(shares):.3f}, min {min(shares):.3f}; mAP plain "
+                       f"{m_ap_plain:.6f}")
+        log(f"eval {precision} 416 on {len(paths)} scenes (batch {EVAL_BATCH}, letterbox, "
+            f"eval mode): evaluate_detector mAP@0.5 {m_ap:.6f} (random seed-0 weights), "
+            f"{n_rows} rows, launches {launches} ({n_batches} batches), first run "
+            f"{first_s:.2f} s; {verdict} | {card}")
+
+        # (c) the eval's host stages over n_timed batches, every shape warm
+        # from the runs above; the device's busy time per batch over a
+        # profiled pass of the scenes twice (the profiler slows the host)
+        timings = {}
+        t0 = time.perf_counter()
+        generate_results_file(det, timed, names, os.path.join(wdir, "timed.json"),
+                              progress=False, timings=timings, **route)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+        check(timings["batches"] == n_timed, f"timed eval: {timings['batches']} batches")
+        busy = busy_ms(lambda: generate_results_file(
+            det, profiled, names, os.path.join(wdir, "profiled.json"), progress=False,
+            **route), iters=1)
+        busy = None if busy is None else busy / (2 * n_batches)
+        stages = ", ".join(f"{k} {timings[k] * 1000 / n_timed:.3f} ms" for k in STAGES)
+        idle = "not measured" if busy is None else f"{1 - busy * n_timed / wall_ms:.3f}"
+        log(f"time eval {precision} 416 over {n_timed} batches of {EVAL_BATCH} (the scenes "
+            f"{EVAL_TIMED_REPEATS} times): {n_timed * EVAL_BATCH * 1000 / wall_ms:.2f} imgs/sec "
+            f"end to end ({wall_ms / n_timed:.3f} ms per batch); host per batch: {stages} "
+            f"(load: OpenCV decode + {'host' if det._u8_feed else 'device'} letterbox; detect: "
+            f"the detect_fn call, which waits on the NMS rounds); device busy per batch "
+            f"{fmt_ms(busy)} (a profiled pass of {2 * n_batches} batches), idle share of the "
+            f"wall {idle} | {card}")
+        del det
+        torch.cuda.empty_cache()
+
+    # ground truth fed back as detections scores 1.0
+    gt_path = os.path.join(work, "eval_int8", "annotations.json")
+    with open(gt_path) as f:
+        gt = json.load(f)
+    res = os.path.join(work, "gt_as_detections.json")
+    with JsonPredictionWriter(res, names) as w:
+        for img in gt["images"]:
+            anns = [a for a in gt["annotations"] if a["image_id"] == img["id"]]
+            w.add(img["id"], np.array([[a["category_id"], *a["bbox"], 1.0, 1.0]
+                                       for a in anns]).reshape(-1, 7))
+    score = evaluate_map(gt_path, res)
+    check(abs(score - 1.0) <= 1e-9, f"ground truth as detections scores {score}")
+    log(f"eval ground truth as detections ({len(gt['annotations'])} boxes, "
+        f"{len(gt['images'])} images): mAP@0.5 {score:.6f} | {card}")
+
+
+def data_train_path(card, weights_path, work, train_summary):
+    """(d): train() from the scenes through DataHelper's Python path
+    (OpenCV) with training_transform and multi-scale, deterministic, labels
+    equal to the committed ones; its samples/sec and ms per net-batch."""
+    import functools
+
+    from yolo_v3_tpu_torch.data import transforms as T
+    from yolo_v3_tpu_torch.data.datasets import ListDataset
+    from yolo_v3_tpu_torch.data.loader import DataHelper
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    config = YoloConfig()
+    lst, _, _ = scene_list(work)
+    ds = ListDataset(lst, trans_fn=functools.partial(T.training_transform, feed_u8=True))
+    want = np.load(os.path.join(SCENES, "expected_labels.npz"))
+
+    def helper(workers, net_batches=DATA_NET_BATCHES, dim=None):
+        """A DataHelper on the schedule with ``workers`` worker processes
+        (1: in this process)."""
+        sampler = CyclicSampler(len(ds), dim=dim, **DATA_SCHEDULE)
+        return DataHelper(ds, sampler, max_net_batches=net_batches, net_subdivisions=2,
+                          prefetch=0, num_workers=workers if workers > 1 else 0)
+
+    def batches(h):
+        try:
+            return [{k: b[k].copy() for k in ("img", "label")} for b in h]
+        finally:
+            h.close()
+
+    first, second = batches(helper(1)), batches(helper(1))
+    check(len(first) == len(want["labels"]) == 2 * DATA_NET_BATCHES,
+          f"data: {len(first)} batches")
+    for b, (x, y) in enumerate(zip(first, second)):
+        check(np.array_equal(x["img"], y["img"]) and np.array_equal(x["label"], y["label"]),
+              f"data batch {b}: a second run with the same seed differs")
+        check(np.array_equal(x["label"], want["labels"][b]),
+              f"data batch {b}: labels differ from the committed expected_labels.npz")
+        check(x["img"].dtype == np.uint8 and x["img"].shape[1] == want["dims"][b],
+              f"data batch {b}: {x['img'].dtype} {x['img'].shape}, dim {want['dims'][b]}")
+    log(f"data Python path (OpenCV): {len(first)} batches of 8 at dims "
+        f"{[int(d) for d in want['dims']]}, uint8 feed, bit-identical on a second run, labels "
+        f"bit-equal to the committed ones (the JAX Python path's) | {card}")
+
+    rates = []
+    for workers in (1, 2):
+        h = helper(workers, net_batches=DATA_TIMED_NET_BATCHES, dim=(416, 416))
+        it = iter(h)
+        next(it)                                   # warm-up (and the workers' start)
+        t0 = time.perf_counter()
+        k = sum(1 for _ in it)
+        rates.append(k * 8 / (time.perf_counter() - t0))
+        h.close()
+    log(f"time data Python path (OpenCV) training_transform at 416 over {k} batches of 8 "
+        f"after one: {rates[0]:.1f} samples/sec with 1 and {rates[1]:.1f} with 2 worker "
+        f"processes | {card}")
+
+    params0, state0 = seed_trees(weights_path, config.num_classes)
+    tcfg = TrainConfig(batch_size=8, net_subdivisions=2, compute_dtype="bfloat16")
+    stamps = []
+    _, _, _, rec = train(helper(1, net_batches=TRAIN_TIMED_NET_BATCHES), params0, state0,
+                         config, tcfg, device="cuda",
+                         log_fn=lambda ln: stamps.append((time.perf_counter(), ln)))
+    torch.cuda.synchronize()
+    stamps = [(t, ln) for t, ln in stamps if ln.startswith("net_batch")]
+    seen = [int(ln.split(" dim ")[1].split()[0]) for _, ln in stamps]
+    check(len(seen) == TRAIN_TIMED_NET_BATCHES and np.isfinite(rec.current_stats["loss"]),
+          f"data train: net-batches at dims {seen}, loss {rec.current_stats['loss']}")
+    ms = (stamps[-1][0] - stamps[0][0]) * 1000 / (len(stamps) - 1)
+    log(f"data train (bf16) from the scenes: {len(seen)} net-batches of 8 x 2 at dims "
+        f"{seen}, final loss {rec.current_stats['loss']:.3f}, {ms:.1f} ms per net-batch "
+        f"over the last {len(seen) - 1} (between the first and the last stats readback; "
+        f"the data path in the loop, one process) (phase 7, in memory at 416, the step "
+        f"alone: {train_summary['bfloat16']['ms']:.1f} ms) | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -1617,7 +1989,14 @@ def main():
         launches, fp32_rows = main_path(card, weights_path, imgs)
         launches_i8, qtree, x_i8 = int8_path(card, weights_path, imgs, fp32_rows)
         options = serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8)
-        training_path(card, weights_path, imgs, work)
+        train_summary = training_path(card, weights_path, imgs, work)
+        t8 = time.perf_counter()
+        host_library(card)
+        eval_path(card, weights_path, qtree, work)
+        t_data = time.perf_counter()
+        data_train_path(card, weights_path, work, train_summary)
+        log(f"eval and data phase: {time.perf_counter() - t8:.1f} s (eval "
+            f"{t_data - t8:.1f} s) | {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

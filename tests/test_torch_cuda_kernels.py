@@ -700,3 +700,86 @@ def test_bf16_stem_and_downs_round_once_on_the_card(dev, cin, cout, stride, hw):
     step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
     assert ((got.float() - ref.float()).abs() <= step + 2.0 ** -12).all()
     assert (_ordered_bf16(got) != _ordered_bf16(ref)).float().mean().item() < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The eval pipeline (yolo_v3_tpu_torch/eval/pipeline.py) on the card
+# ---------------------------------------------------------------------------
+
+def _results_rows(path):
+    """{image_id: [n, 6] (category, x, y, w, h, score)} of a results json."""
+    import json
+
+    out = {}
+    for e in json.load(open(path)):
+        out.setdefault(e["image_id"], []).append([e["category_id"], *e["bbox"], e["score"]])
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def _same_result_rows(a, b, box_atol=1e-2, score_atol=1e-4):
+    """Every image's rows match one to one (same class, boxes within
+    ``box_atol`` px, scores within ``score_atol``; order may differ where
+    two scores tie)."""
+    ra, rb = _results_rows(a), _results_rows(b)
+    if sorted(ra) != sorted(rb):
+        return False
+    for k, want in rb.items():
+        got = ra[k]
+        if got.shape != want.shape:
+            return False
+        used = np.zeros(len(got), bool)
+        for row in want:
+            ok = ((got[:, 0] == row[0]) & ~used
+                  & (np.abs(got[:, 1:5] - row[1:5]).max(1) <= box_atol)
+                  & (np.abs(got[:, 5] - row[5]) <= score_atol))
+            if not ok.any():
+                return False
+            used[np.argmax(ok)] = True
+    return True
+
+
+@pytest.mark.parametrize("precision", ["int8", "fp32"])
+def test_eval_results_on_the_card_match_plain(dev, tmp_path, precision):
+    """generate_results_file on the committed scenes (tests/data/torch_scenes,
+    a small net: blocks (1,1,1,1,1), 80 classes, 96 px, batch 3 over 7
+    images, so the last chunk is ragged), eval mode, letterboxed, images
+    decoded by OpenCV (the card's host has no libjpeg for the native pool).
+    On the kernels against the plain path on the card: int8 (uint8 feed)
+    gives an identical results.json, fp32 the same rows.  Against the CPU's
+    plain run: the same rows (int8 heads are bit-equal across the devices,
+    but the decode's float math differs in the last bits: boxes up to 6e-5
+    px apart at this size)."""
+    import os
+    import os.path as osp
+
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.eval.pipeline import generate_results_file
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    scenes = osp.join(osp.dirname(osp.abspath(__file__)), "data", "torch_scenes")
+    img_dir = osp.join(scenes, "images")
+    paths = sorted(osp.join(img_dir, n) for n in os.listdir(img_dir) if n.endswith(".jpg"))
+    lst = tmp_path / "scenes.txt"
+    lst.write_text("\n".join(paths[:7]) + "\n")
+    names = [f"c{i}" for i in range(80)]
+    cfg = YoloConfig(num_classes=80, img_dim=96, max_detections=24)
+    gen = torch.Generator().manual_seed(0)
+    params, state = D.init_yolonet(gen, 80, blocks=(1, 1, 1, 1, 1))
+    kw = dict(precision=precision, resize_on_device=precision != "int8")
+    cpu = Detector(params, state, cfg, device="cpu", **kw)
+    card = (Detector(None, None, cfg, quantized_tree=cpu.qtree, device="cuda",
+                     resize_on_device=False) if precision == "int8"
+            else Detector(params, state, cfg, device="cuda", **kw))
+    out = {}
+    for name, det, plain in (("card", card, False), ("card_plain", card, True),
+                             ("cpu", cpu, False)):
+        out[name] = str(tmp_path / f"{name}.json")
+        generate_results_file(det, str(lst), names, out[name], batch_size=3,
+                              is_letterbox=True, progress=False, use_native_loader=False,
+                              plain=plain)
+    assert sum(len(v) for v in _results_rows(out["cpu"]).values()) > 0
+    if precision == "int8":
+        assert open(out["card"]).read() == open(out["card_plain"]).read()
+    else:
+        assert _same_result_rows(out["card"], out["card_plain"])
+    assert _same_result_rows(out["card"], out["cpu"])

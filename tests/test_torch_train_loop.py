@@ -212,7 +212,9 @@ def test_worker_pool_and_prefetch_give_the_in_process_batches():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="native"):
+    # the native pool is ported; it takes only a dataset with raw_entry()
+    # (ListDataset), and asking for it on another raises, never falls back
+    with pytest.raises(ValueError, match="raw_entry"):
         make_data(1, native_threads=2)
     with pytest.raises(NotImplementedError, match="parallel"):
         train(make_data(1), *init(), CFG, TCFG, device="cpu", mesh=object())

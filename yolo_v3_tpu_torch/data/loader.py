@@ -16,9 +16,13 @@ dict`` and ``__len__``.  Batches are numpy arrays: imgs [B, H, W, 3] (all
 samples of a batch share one multi-scale dim by construction) and labels
 [B, max_labels, 5].  A background thread prefetches batches, and
 ``num_workers`` > 0 assembles samples in a pool of worker processes (started
-with ``spawn``, so the dataset must pickle).  The native C++ decode and
-augment pool of the JAX package (``native_threads``) comes with the port's
-data-engine slice; until then asking for it raises.  The JAX package's
+with ``spawn``, so the dataset must pickle).  ``native_threads`` > 0
+assembles each batch on the native C++ decode and augment pool
+(:mod:`yolo_v3_tpu_torch.data.native_aug`), with the same labels and draws as
+the Python path; a sample that is not a decodable JPEG takes the Python path
+alone, and ``native_stats`` counts the samples of each path.  Unlike the JAX
+package, the native path never turns itself off: without the library, or
+with a dataset or transform it cannot take, it raises.  The JAX package's
 per-host batch sharding comes with the port's multi-card (DDP) slice.
 """
 
@@ -86,10 +90,6 @@ class DataHelper:
         num_workers: int = 0,
         native_threads: int = 0,
     ):
-        if native_threads > 0:
-            raise NotImplementedError(
-                "native_threads: the native decode and augment pool is not ported "
-                "yet (ROADMAP queue A, the data engine); use num_workers")
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = sampler.batch_size
@@ -98,7 +98,20 @@ class DataHelper:
         self.prefetch = prefetch
         self.drop_keys = drop_keys
         self.num_workers = num_workers
+        self.native_threads = native_threads
+        self.native_stats = {"native": 0, "fallback": 0}
         self._pool = None
+        self._prefetcher = None          # (stop event, thread) while prefetching
+        self._native = None
+        self._spec_cache: Dict[Any, Any] = {}
+        if native_threads > 0:
+            from yolo_v3_tpu_torch.data import native_loader
+
+            if not hasattr(dataset, "raw_entry") or getattr(dataset, "trans_fn", None) is None:
+                raise ValueError(
+                    "native_threads needs a dataset with raw_entry() and a trans_fn "
+                    f"(ListDataset); {type(dataset).__name__} lacks them")
+            native_loader.load_library()        # raises with the build's error
 
         if max_net_batches is not None:
             self.max_net_batches = max_net_batches
@@ -124,11 +137,16 @@ class DataHelper:
         return self._pool
 
     def close(self) -> None:
-        """Shut down the worker pool (idempotent)."""
+        """Stop the prefetch thread, then shut down the worker pool and the
+        native pool (idempotent)."""
+        self._stop_prefetch()
         if self._pool is not None:
             self._pool.terminate()
             self._pool.join()
             self._pool = None
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
     def __del__(self):
         try:
@@ -136,8 +154,49 @@ class DataHelper:
         except Exception:
             pass
 
+    def _native_assemble(self, tasks) -> Dict[str, Any]:
+        """Assemble a batch on the C++ decode+augment pool
+        (data/native_aug.py), with labels and randomness bit-identical to
+        the Python path.  Non-JPEG samples, and a batch of mixed dims (not
+        made by a sampler whose ``rand_dim_interval`` is a multiple of the
+        batch), take the Python path; ``native_stats`` counts them."""
+        from yolo_v3_tpu_torch.data import native_aug as NA
+
+        ds = self.dataset
+        keep = ("img", "label", "lb_reverter", "img_path")
+        dims = {t[1] for t in tasks}
+        dim = tasks[0][1]
+        if len(dims) == 1:
+            if dim not in self._spec_cache:
+                self._spec_cache[dim] = NA.compile_transform(ds.trans_fn(dim))
+            spec = self._spec_cache[dim]
+            if spec is None:
+                raise ValueError(
+                    "native_threads takes only the darknet training chain "
+                    "(transforms.training_transform without extra_aug); this "
+                    "trans_fn is another (native_aug.compile_transform)")
+            if self._native is None:
+                self._native = NA.NativeAugLoader(self.native_threads)
+            entries = [ds.raw_entry(t[0]) for t in tasks]
+            samples, ok = self._native.load_batch(
+                [e[0] for e in entries], [e[1] for e in entries],
+                [t[2] for t in tasks], dim, spec,
+            )
+        else:
+            samples, ok = [None] * len(tasks), [False] * len(tasks)
+        for i, (base_idx, d, seed) in enumerate(tasks):
+            if not ok[i]:
+                s = ds.get(base_idx, d, seed)
+                samples[i] = {k: s.get(k) for k in keep}
+        n_native = sum(ok)
+        self.native_stats["native"] += n_native
+        self.native_stats["fallback"] += len(tasks) - n_native
+        return collate(samples)
+
     def _assemble(self, positions: List[int]) -> Dict[str, Any]:
         tasks = [self.sampler.schedule(pos) for pos in positions]
+        if self.native_threads > 0:
+            return self._native_assemble(tasks)
         pool = self._get_pool()
         if pool is not None:
             samples = pool.map(_pool_get, tasks, chunksize=1)
@@ -176,25 +235,52 @@ class DataHelper:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         done = object()
         err: List[BaseException] = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Queue ``item``, unless the consumer has gone first."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
             try:
                 for item in it:
-                    q.put(item)
+                    if not put(item):
+                        return
             except BaseException as e:  # surfaced to the consumer below
                 err.append(e)
             finally:
-                q.put(done)
+                put(done)
 
         t = threading.Thread(target=worker, daemon=True)
+        self._prefetcher = (stop, t)
         t.start()
-        while True:
-            item = q.get()
-            if item is done:
-                if err:
-                    raise err[0]
-                return
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            self._stop_prefetch()
+
+    def _stop_prefetch(self) -> None:
+        """Stop the prefetch thread and wait for it: it may be assembling a
+        batch ahead on the native pool or the worker pool, which ``close``
+        releases only after."""
+        if self._prefetcher is not None:
+            stop, t = self._prefetcher
+            stop.set()
+            if t is not threading.current_thread():
+                t.join()
+            self._prefetcher = None
 
     def __iter__(self):
         if self._iterator is None:

@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving, training and eval paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, eval, CLI and data-parallel
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -88,7 +89,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    to the committed ``expected_labels.npz`` (made by the JAX package's
    Python path), samples/sec over 51 batches with 1 and 2 worker
    processes, and ``train()`` (bf16) for 11 net-batches of 8 x 2 from it,
-   ms per net-batch over the last 10.
+   ms per net-batch over the last 10;
+9. the CLI, data parallelism and profiling.  (a) CLI children (this script
+   with ``--cli ARGS`` runs the CLI's ``main(ARGS)`` with the kernels'
+   launch counts zeroed just before and printed just after): ``weights
+   inspect`` and ``convert`` (through ``python -m yolo_v3_tpu_torch.cli``;
+   the float count and the npz equal to the ``.weights``), ``quantize`` on
+   phase 4's 8 images (the artifact equal to phase 4's tree), ``detect`` in
+   int8 and bf16 on a committed scene (the printed rows equal to
+   ``Detector.detect``'s formatted in this process, phase 4's launch
+   counts, the saved PNG decodes) and ``eval --precision int8 --letterbox``
+   on the 24 scenes (mAP equal to phase 8's, results.json identical to
+   ``evaluate_detector``'s here on the same artifact), with each child's
+   seconds; (b) ``train --bf16 --feed-u8 --multi-scale`` for 2 net-batches
+   of 8 x 2 on the scenes, then ``--resume`` for 1, against 3 in one go
+   (children with deterministic algorithms): params and BN state bit-equal;
+   (c) ``train(mesh=...)`` (this script with ``--dp-worker``) on phase 7's
+   seed model and in-memory scenes, YOLOv3-416 fp32, a global net-batch of
+   8 x 2 for 1 net-batch + checkpoint + resume + 1: 2 gloo ranks sharing the
+   card (CUDA tensors) against one process on the global batch (the ranks
+   bit-equal after each net-batch; the first net-batch's loss and stats
+   within rtol 1e-4 and its params within atol 2e-4, the second's loss
+   within rtol 1e-4 and its params as close to a float64 evaluation as one
+   process's, twice at most), a 1-rank NCCL group bit-equal to no mesh, a
+   (2, 1) checkpoint refused under a 1-rank mesh, ms per net-batch
+   (information); (d) ``StepTimer`` (CUDA events) around 5 detects after 2
+   in int8 and bf16 beside phase 5's e2e, and ``trace()`` around one int8
+   detect, whose Chrome trace names ``fused_entry`` and ``conv_p2d``.
 
 TF32 is turned off only around this script's own plain references and
 cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
@@ -97,6 +124,7 @@ the last is the kernel summary as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA; imports no JAX.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -753,9 +781,10 @@ def same_rows(a, b, box_atol=1e-2, prob_atol=1e-4):
     return a.shape == b.shape and not unmatched(a, b, box_atol, prob_atol)
 
 
-def main_path(card, weights_path, imgs):
+def main_path(card, weights_path, imgs, e2e):
     """Phases 4 and 5 in bf16 and fp32.  Returns ({dtype: {kernel: launches
-    in that dtype's main run}}, the fp32 detection rows)."""
+    in that dtype's main run}}, the fp32 detection rows); puts each
+    precision's e2e ms per batch into ``e2e``."""
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import weights as W
@@ -831,7 +860,7 @@ def main_path(card, weights_path, imgs):
             pre_ms = cuda_ms(lambda: det.preprocess(imgs))
             post_ms = cuda_ms(lambda: postprocess_from_raws(
                 heads, config, config.img_dim, config.conf_thr, config.nms_thr))
-        e2e_ms = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
+        e2e_ms = e2e[precision] = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
         e2e_plain_ms = cuda_ms(lambda: det.detect(imgs, plain=True),
                                iters=5, warmup=2)
         log(f"time {precision} bs{BATCH} 416: e2e detect {BATCH * 1000 / e2e_ms:.2f} imgs/sec "
@@ -872,9 +901,10 @@ def agreement(ref, rows, same_class=True):
     return hit / max(len(ref), 1)
 
 
-def int8_path(card, weights_path, imgs, fp32_rows):
+def int8_path(card, weights_path, imgs, fp32_rows, e2e):
     """Phases 4 and 5 in int8.  Returns the kernels' launch counts of the
-    int8 path's run, its calibrated tree and the float batch it serves."""
+    int8 path's run, its calibrated tree and the float batch it serves; puts
+    the e2e ms per batch into ``e2e``."""
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.ops import entry_kernel as EK
     from yolo_v3_tpu_torch.ops import fused_conv as FC
@@ -932,7 +962,7 @@ def int8_path(card, weights_path, imgs, fp32_rows):
         pre_ms = cuda_ms(lambda: det.preprocess(imgs))
         post_ms = cuda_ms(lambda: postprocess_from_raws(
             heads, config, config.img_dim, config.conf_thr, config.nms_thr))
-    e2e_ms = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
+    e2e_ms = e2e["int8"] = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
     e2e_plain_ms = cuda_ms(lambda: det.detect(imgs, plain=True), iters=5, warmup=2)
     log(f"time int8 bs{BATCH} 416: e2e detect {BATCH * 1000 / e2e_ms:.2f} imgs/sec "
         f"({e2e_ms:.3f} ms/batch), forward {fwd_ms:.3f} ms; plain path: "
@@ -1755,7 +1785,8 @@ def unmatched_rows(a, b):
 
 def eval_path(card, weights_path, qtree, work):
     """(b), (c): evaluate_detector at 416 on the scenes in int8 (uint8 feed),
-    fp32 and bf16, each against the same pipeline on the plain path."""
+    fp32 and bf16, each against the same pipeline on the plain path.
+    Returns {precision: mAP}."""
     from yolo_v3_tpu_torch.data.datasets import ListDataset
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.eval.coco_json import JsonPredictionWriter
@@ -1784,6 +1815,7 @@ def eval_path(card, weights_path, qtree, work):
                    "fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0),
                    "bf16": BF16_LAUNCHES}
     scenes = [ListDataset(lst).load_raw(i)["img"] for i in range(len(paths))]
+    maps = {}
     for precision in ("int8", "fp32", "bf16"):
         if precision == "int8":
             det = Detector(None, None, config, quantized_tree=qtree, resize_on_device=False,
@@ -1798,6 +1830,7 @@ def eval_path(card, weights_path, qtree, work):
         m_ap, launches = counted(counters[precision],
                                  lambda: evaluate_detector(det, lst, names, wdir, **route))
         first_s = time.perf_counter() - t0
+        maps[precision] = m_ap
         want = {k: v * n_batches for k, v in per_forward[precision].items()}
         check(launches == want, f"eval {precision}: launches {launches}, want {want}")
         res, gt = os.path.join(wdir, "results.json"), os.path.join(wdir, "annotations.json")
@@ -1877,6 +1910,7 @@ def eval_path(card, weights_path, qtree, work):
     check(abs(score - 1.0) <= 1e-9, f"ground truth as detections scores {score}")
     log(f"eval ground truth as detections ({len(gt['annotations'])} boxes, "
         f"{len(gt['images'])} images): mAP@0.5 {score:.6f} | {card}")
+    return maps
 
 
 def data_train_path(card, weights_path, work, train_summary):
@@ -1956,6 +1990,586 @@ def data_train_path(card, weights_path, work, train_summary):
         f"alone: {train_summary['bfloat16']['ms']:.1f} ms) | {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the CLI, data parallelism and profiling
+# ---------------------------------------------------------------------------
+
+CLI_SCENE = "scene_000001.jpg"
+# the data-parallel check: 2 ranks of 4 x 2 against one process of 8 x 2
+DP_RANKS = 2
+# the CLI training run: 2 net-batches, then --resume for 1, against 3 in one
+# go, checkpointing every net-batch (the CLI's default: a run resumes from an
+# in-loop checkpoint: resuming from a final one skips data, ROADMAP section C)
+CLI_TRAIN = ["--dim", "416", "--multi-scale", "--batch-size", str(TRAIN_BATCH),
+             "--subdivisions", str(TRAIN_SUBDIVISIONS), "--bf16", "--feed-u8"]
+
+
+def kernel_counters():
+    from yolo_v3_tpu_torch.ops import entry_kernel as EK
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+
+    return {"fused_res_block": fused_res_block, "fused_entry": EK.fused_entry,
+            "conv1x1_p2d": FC.conv1x1_p2d, "conv3x3_p2d": FC.conv3x3_p2d,
+            "res_block_p2d": FC.res_block_p2d}
+
+
+def cli_child(argv, deterministic):
+    """Child process of phase 9 (``--cli`` / ``--cli-deterministic``): the
+    CLI's ``main`` (what ``python -m yolo_v3_tpu_torch.cli`` runs) on
+    ``argv``, every kernel's launch count set to 0 just before and printed
+    just after as the last line of stderr, with the wall seconds."""
+    from yolo_v3_tpu_torch import cli
+
+    if deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    _, launches = counted(kernel_counters(), lambda: cli.main(argv))
+    print(json.dumps({"launches": launches, "seconds": time.perf_counter() - t0}),
+          file=sys.stderr, flush=True)
+
+
+def start(args, env=None):
+    """A child process whose output goes to temporary files, so that children
+    waiting on one another never block on a full pipe."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, *args], env=env, stdout=out, stderr=err,
+                            text=True)
+    proc.logs = out, err
+    return proc
+
+
+def start_cli(argv, deterministic=False):
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8") if deterministic else None
+    mode = "--cli-deterministic" if deterministic else "--cli"
+    return start([os.path.abspath(__file__), mode, *argv], env)
+
+
+def finish(proc, what, timeout=300):
+    """(stdout, the child's last stderr line as JSON or None) of a child
+    that must exit 0."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    out, err = proc.logs
+    out.seek(0)
+    err.seek(0)
+    out, err = out.read(), err.read()
+    proc.logs[0].close()
+    proc.logs[1].close()
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}: {err[-3000:]}")
+    last = err.strip().splitlines()[-1] if err.strip() else ""
+    return out, (json.loads(last) if last.startswith("{") else None)
+
+
+def finish_all(procs, timeout=300):
+    """{name: finish(...)} of children that must all exit 0 within
+    ``timeout`` s together; on a failure every child still running is
+    killed."""
+    deadline = time.monotonic() + timeout
+    try:
+        return {k: finish(p, k, max(deadline - time.monotonic(), 1.0))
+                for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def trees_equal(a, b):
+    fa, fb = flat_trees(a), flat_trees(b)
+    return sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def cli_serving(card, weights_path, imgs, qtree, work, eval_map):
+    """(a) weights convert / inspect / quantize, detect in int8 and bf16, eval
+    in int8, each a child process through the CLI."""
+    import cv2
+
+    from yolo_v3_tpu_torch import cli
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.eval.pipeline import evaluate_detector
+    from yolo_v3_tpu_torch.models import quantized as Q
+    from yolo_v3_tpu_torch.models import weights as W
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    config = YoloConfig()
+    d = os.path.join(work, "cli")
+    calib = os.path.join(d, "calib")
+    os.makedirs(calib)
+    # phase 4's calibration images, lossless and in order, so the CLI's
+    # artifact is phase 4's tree
+    for i, im in enumerate(imgs):
+        cv2.imwrite(os.path.join(calib, f"calib_{i}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    conv, q = os.path.join(d, "convert.npz"), os.path.join(d, "q.npz")
+    scene = os.path.join(SCENES, "images", CLI_SCENE)
+    png = os.path.join(d, "detections.png")
+    module = ["-m", "yolo_v3_tpu_torch.cli"]
+    # the weights tools and the bf16 detect at once, then the int8 detect and
+    # eval on the quantized artifact
+    t0 = time.perf_counter()
+    procs = {"weights inspect": start(module + ["weights", "inspect", weights_path]),
+             "weights convert": start(module + ["weights", "convert", weights_path,
+                                                "--out", conv]),
+             "weights quantize": start_cli(["weights", "quantize", weights_path, "--out", q,
+                                            "--calib-images", calib, "--calib-count",
+                                            str(len(imgs))]),
+             "detect bf16": start_cli(["detect", "--image", scene, "--weights", weights_path,
+                                       "--precision", "bf16", "--out", png])}
+    outs = finish_all(procs)
+    wall = time.perf_counter() - t0
+    params, state = seed_trees(weights_path, config.num_classes)
+    n_floats = sum(v.size for t in (params, state) for v in flat_trees(t).values())
+    info = json.loads(outs["weights inspect"][0])
+    check(info == {"version": [0, 2, 0], "seen": 0, "n_floats": n_floats},
+          f"cli weights inspect: {info}, want {n_floats} floats")
+    tree, meta = W.load_pytree(conv)
+    check(trees_equal(tree["params"], params) and trees_equal(tree["state"], state)
+          and meta["seen"] == 0, "cli weights convert: the npz differs from the .weights")
+    check(Q.is_quantized_file(q), "cli weights quantize wrote no artifact")
+    got = Q.load_quantized(q)
+    names, kinds, got_leaves, want_leaves = [], [], [], []
+    Q._flatten_q(got, [], names, kinds, got_leaves)
+    Q._flatten_q(qtree, [], [], [], want_leaves)
+
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    check(len(got_leaves) == len(want_leaves)
+          and all(np.array_equal(host(a), host(b)) for a, b in zip(got_leaves, want_leaves)),
+          "cli weights quantize: the artifact differs from phase 4's calibrated tree")
+    log(f"cli weights and detect bf16 (4 children at once, {wall:.1f} s): inspect "
+        f"{info['n_floats']} floats; "
+        f"convert: npz equal to the .weights; quantize "
+        f"(calibrated on phase 4's 8 images): artifact equal to phase 4's int8 tree, "
+        f"{outs['weights quantize'][1]['seconds']:.1f} s in main | {card}")
+
+    lst, paths, names_ = scene_list(work, name="cli_scenes.txt")
+    names_file = os.path.join(SCENES, "scenes.names")
+    eval_dir = os.path.join(d, "eval")
+    procs = {
+        "detect int8": start_cli(["detect", "--image", scene, "--weights", q,
+                                  "--precision", "int8"]),
+        "eval int8": start_cli(["eval", "--val-list", lst, "--weights", q, "--names",
+                                names_file, "--letterbox", "--precision", "int8",
+                                "--workdir", eval_dir]),
+    }
+    t0 = time.perf_counter()
+    outs = {"detect bf16": outs["detect bf16"], **finish_all(procs)}
+    wall = time.perf_counter() - t0
+    img = cv2.cvtColor(cv2.imread(scene), cv2.COLOR_BGR2RGB)
+    n_batches = -(-len(paths) // EVAL_BATCH)
+    want_launches = {
+        "detect int8": dict(INT8_LAUNCHES, fused_res_block=0),
+        "detect bf16": dict(BF16_LAUNCHES, fused_entry=0, res_block_p2d=0),
+        "eval int8": {k: v * n_batches for k, v in dict(INT8_LAUNCHES,
+                                                        fused_res_block=0).items()}}
+    for what, (out, res) in outs.items():
+        check(res["launches"] == want_launches[what],
+              f"cli {what}: launches {res['launches']}, want {want_launches[what]}")
+    for precision, det in (
+            ("int8", Detector.from_quantized(q, config, device="cuda")),
+            ("bf16", Detector.from_darknet_weights(weights_path, config, device="cuda",
+                                                   precision="bf16"))):
+        want = [cli.format_detection(r)
+                for r in det.detect([img], conf_thr=0.5, nms_thr=0.4, dim=416)[0]]
+        got = [ln for ln in outs[f"detect {precision}"][0].splitlines()
+               if not ln.startswith("saved ")]
+        check(got == want, f"cli detect {precision}: printed rows differ from "
+                           f"Detector.detect's in this process ({len(got)} vs {len(want)})")
+        log(f"cli detect {precision} ({CLI_SCENE}, {img.shape[1]}x{img.shape[0]}): "
+            f"{len(got)} rows printed, equal to Detector.detect's formatted in this process; "
+            f"launches {outs[f'detect {precision}'][1]['launches']}; "
+            f"{outs[f'detect {precision}'][1]['seconds']:.1f} s in main | {card}")
+        del det
+    saved = cv2.imread(png)
+    check(saved is not None and saved.shape == img.shape[:2] + (3,),
+          f"cli detect --out: {png} does not decode to the scene's shape")
+    m_ap = json.loads(outs["eval int8"][0].strip().splitlines()[-1])["mAP@0.5"]
+    check(m_ap == eval_map["int8"], f"cli eval int8: mAP {m_ap} vs phase 8's {eval_map['int8']}")
+    same_dir = os.path.join(d, "eval_same")
+    os.makedirs(same_dir)
+    det = Detector.from_quantized(q, config, device="cuda")
+    m_same = evaluate_detector(det, lst, names_, same_dir, is_letterbox=True,
+                               use_native_loader=False)
+    del det
+    with open(os.path.join(eval_dir, "results.json")) as f, \
+            open(os.path.join(same_dir, "results.json")) as g:
+        check(f.read() == g.read(), "cli eval int8: results.json differs from "
+                                    "evaluate_detector's on the same artifact")
+    log(f"cli eval int8 --letterbox on {len(paths)} scenes: mAP@0.5 {m_ap:.6f} equal to phase "
+        f"8's evaluate_detector on the same tree ({eval_map['int8']:.6f}); results.json "
+        f"identical to evaluate_detector's in this process with the CLI's Detector (float "
+        f"feed, card letterbox, OpenCV decode; mAP {m_same:.6f}); launches "
+        f"{outs['eval int8'][1]['launches']}; {outs['eval int8'][1]['seconds']:.1f} s in "
+        f"main | {card}")
+    log(f"cli detect int8, eval int8 (2 children at once): {wall:.1f} s | {card}")
+
+
+def start_cli_training(work):
+    """(b)'s first two children, 2 and 3 net-batches of ``train --bf16
+    --feed-u8 --multi-scale`` with deterministic algorithms, started to run
+    beside (a)'s.  Returns what :func:`cli_training` finishes."""
+    lst, _, _ = scene_list(work, name="cli_train.txt")
+    wdir = os.path.join(work, "cli", "weights")
+    base = ["train", "--train-list", lst, "--names", os.path.join(SCENES, "scenes.names"),
+            "--weight-dir", wdir, *CLI_TRAIN]
+    procs = {"2 net-batches": start_cli(base + ["--model-id", "r", "--max-net-batches", "2"],
+                                        True),
+             "3 net-batches": start_cli(base + ["--model-id", "g", "--max-net-batches", "3"],
+                                        True)}
+    return base, wdir, procs, time.perf_counter()
+
+
+def cli_training(card, started):
+    """(b) the 2-net-batch run resumed with ``--resume`` for 1 more, against
+    3 in one go."""
+    from yolo_v3_tpu_torch.train.checkpoint import get_latest_checkpoint, load_checkpoint
+
+    base, wdir, procs, t0 = started
+    outs = finish_all(procs)
+    t1 = time.perf_counter()
+    _, resumed = finish_all({"train --resume": start_cli(
+        base + ["--model-id", "r", "--max-net-batches", "3", "--resume"], True)})[
+        "train --resume"]
+    t2 = time.perf_counter()
+    ckpts = {}
+    for model_id in ("r", "g"):
+        path, it = get_latest_checkpoint(model_id, wdir)
+        check(it == 2, f"cli train {model_id}: latest checkpoint {path}")
+        ckpts[model_id] = load_checkpoint(path)
+    a, b = ckpts["r"], ckpts["g"]
+    check(trees_equal(a["params"], b["params"]) and trees_equal(a["state"], b["state"]),
+          "cli train: 2 net-batches + --resume 1 differ from 3 in one go")
+    launches = {k: v for k, v in resumed["launches"].items() if v}
+    log(f"cli train --bf16 --feed-u8 --multi-scale (8 x 2 on the scenes, OpenCV + "
+        f"darknet augmentation): 2 net-batches then --resume for 1: params and BN state "
+        f"bit-equal to 3 in one go (deterministic algorithms); wall {t1 - t0:.1f} s for the "
+        f"2- and 3-net-batch children beside (a)'s ({outs['2 net-batches'][1]['seconds']:.1f} / "
+        f"{outs['3 net-batches'][1]['seconds']:.1f} s in main), --resume {t2 - t1:.1f} s "
+        f"({resumed['seconds']:.1f} s in main); hand-kernel launches {launches or 'none'} "
+        f"(training runs on cuDNN) | {card}")
+
+
+def digest(*trees):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in trees:
+        for k, v in sorted(flat_trees(t).items()):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def dp_worker(weights_path, out, mode):
+    """Child process of phase 9 (``--dp-worker``): YOLOv3-416 fp32 from phase
+    7's seed model on its in-memory scenes, a global net-batch of 8 x 2, for
+    1 net-batch, then a resume from that checkpoint for 1 more, with
+    deterministic algorithms.  ``mode``: ``gloo`` (this rank of a gloo run,
+    from the launcher's variables, on card 0), ``nccl`` (a process group of
+    one rank on NCCL) or ``none`` (no mesh).  Writes one JSON file a rank:
+    a digest of params and BN state after each net-batch, rank 0's stats
+    and each call's seconds."""
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+    from yolo_v3_tpu_torch.parallel import distributed as dist
+    from yolo_v3_tpu_torch.train.checkpoint import get_latest_checkpoint, load_checkpoint
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if mode == "gloo":
+        ctx = dist.initialize(backend="gloo")
+        mesh = dist.make_global_mesh(device="cuda:0")     # the ranks share one card
+    elif mode == "nccl":
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+            world_size=1, rank=0)
+        ctx, mesh = dist.initialize(), dist.make_global_mesh()
+    else:
+        ctx, mesh = dist.initialize(), None
+    config = YoloConfig()
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS)
+    dataset = SceneDataset(TRAIN_IMAGES, config.num_classes)
+    params, state = seed_trees(weights_path, config.num_classes)
+    wdir = os.path.join(out, mode)
+
+    def data(n):
+        sampler = CyclicSampler(len(dataset), TRAIN_BATCH, shuffle=False, dim=(416, 416))
+        return dist.make_data_helper(dataset, sampler, ctx, max_net_batches=n,
+                                     net_subdivisions=TRAIN_SUBDIVISIONS, prefetch=0)
+
+    rec, checkpoint = [], None
+    for n in (1, 2):
+        if n == 2:
+            checkpoint = load_checkpoint(get_latest_checkpoint("dp", wdir)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, _, recorder = train(data(n), params, state, config, tcfg, model_id="dp",
+                                  weight_dir=wdir, checkpoint=checkpoint, mesh=mesh,
+                                  device="cuda", log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        rec.append({"digest": digest(p, s), "seconds": time.perf_counter() - t0,
+                    "stats": dict(recorder.current_stats) if ctx.process_id == 0 else None})
+    with open(os.path.join(out, f"{mode}.rank{ctx.process_id}.json"), "w") as f:
+        json.dump(rec, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def float64_training():
+    """The port's training step evaluated in float64 on float64 trees:
+    ``Tensor.float()``, which the step calls for its BN math, loss and clip,
+    leaves a float64 tensor as it is inside the block (the CPU tests'
+    ``port_in_float64``)."""
+    to_float = torch.Tensor.float
+
+    def keep_float64(self, *args, **kw):
+        return self if self.dtype == torch.float64 else to_float(self, *args, **kw)
+
+    torch.Tensor.float = keep_float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float
+
+
+def float64_run(weights_path):
+    """The data-parallel check's 2 net-batches, one process on the global
+    batch, evaluated in float64 on the card: the flat params after each."""
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+    from yolo_v3_tpu_torch.models.darknet import map_tree
+    from yolo_v3_tpu_torch.train.optimizer import make_optimizer
+    from yolo_v3_tpu_torch.train.step import make_train_step
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    config = YoloConfig()
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS)
+    dataset = SceneDataset(TRAIN_IMAGES, config.num_classes)
+    sampler = CyclicSampler(len(dataset), TRAIN_BATCH, shuffle=False, dim=(416, 416))
+    from yolo_v3_tpu_torch.data.loader import DataHelper
+
+    data = DataHelper(dataset, sampler, max_net_batches=2,
+                      net_subdivisions=TRAIN_SUBDIVISIONS, prefetch=0)
+    samples = list(data)
+    params, state = (map_tree(lambda t: t.to("cuda", torch.float64), t)
+                     for t in seed_trees(weights_path, config.num_classes))
+    opt = make_optimizer(tcfg)
+    step = make_train_step(config, opt, compute_dtype=torch.float64)
+    opt_state = opt.init(params)
+    out = []
+    with float64_training():
+        for nb in range(2):
+            micro = samples[nb * TRAIN_SUBDIVISIONS:(nb + 1) * TRAIN_SUBDIVISIONS]
+            imgs = torch.from_numpy(np.stack([m["img"] for m in micro])).cuda()
+            labels = torch.from_numpy(np.stack([m["label"] for m in micro])).cuda().double()
+            params, state, opt_state, _ = step(params, state, opt_state, imgs, labels)
+            out.append(flat_trees(params))
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def data_parallel(card, weights_path, work):
+    """(c) 2 gloo ranks on the one card against one process on the global
+    batch, and a 1-rank NCCL mesh against no mesh."""
+    from yolo_v3_tpu_torch.parallel import mesh as M
+    from yolo_v3_tpu_torch.train.checkpoint import load_checkpoint
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    out = os.path.join(work, "dp")
+    os.makedirs(out)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", MASTER_ADDR="127.0.0.1")
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    me = [os.path.abspath(__file__), "--dp-worker", weights_path, out]
+    t0 = time.perf_counter()
+    finish_all({f"dp worker ({m})": start(me + [m], dict(env, MASTER_PORT=str(free_port())))
+                for m in ("none", "nccl")})
+    t1 = time.perf_counter()
+    port = str(free_port())
+    finish_all({f"dp worker (gloo rank {r})": start(
+        me + ["gloo"], dict(env, MASTER_PORT=port, WORLD_SIZE=str(DP_RANKS), RANK=str(r),
+                            LOCAL_RANK="0")) for r in range(DP_RANKS)})
+    t2 = time.perf_counter()
+
+    def load(name):
+        with open(os.path.join(out, name)) as f:
+            return json.load(f)
+
+    ref, nccl = load("none.rank0.json"), load("nccl.rank0.json")
+    gloo = [load(f"gloo.rank{r}.json") for r in range(DP_RANKS)]
+    # the first net-batch runs on equal params, so its loss and stats are held
+    # as phase 7 holds the card's against the CPU's (rtol 1e-4, counts
+    # equal); the second runs on params that already differ by the first
+    # update's rounding (held below at atol 2e-4): its loss is held, its
+    # other stats are printed
+    rel = []
+    for nb in range(2):
+        check(gloo[0][nb]["digest"] == gloo[1][nb]["digest"],
+              f"dp: the ranks' params differ after net-batch {nb}")
+        check(nccl[nb]["digest"] == ref[nb]["digest"],
+              f"dp: the 1-rank NCCL mesh differs from no mesh after net-batch {nb}")
+        diffs = {}
+        for k, v in ref[nb]["stats"].items():
+            g = gloo[0][nb]["stats"][k]
+            diffs[k] = abs(g - v) / max(abs(v), 1e-12)
+            if k == "nGT" or (nb == 0 and k == "nCorrect"):
+                check(g == v, f"dp net-batch {nb}: {k} {g} vs {v}")
+            elif (nb == 0 or k == "loss") and k != "nCorrect":
+                check(abs(g - v) <= 1e-4 * abs(v) + 1e-12, f"dp net-batch {nb}: {k} {g} vs {v}")
+        rel.append(diffs)
+    # After the first net-batch (one step from equal params) the params are
+    # held within atol 2e-4 of one process's (the JAX 2-process test's bound
+    # for one step), the BN state within rtol 1e-4 / atol 1e-5 (the step
+    # tests' bound).  After the second, the float32 rounding of the first
+    # update has gone through a second step; there both runs are held to a
+    # float64 evaluation of the same 2 net-batches, as the CPU step test
+    # holds the port's float32 step: each leaf's error relative to its
+    # largest float64 update, the largest and the median over the tree no
+    # more than twice the single process's own.
+    t3 = time.perf_counter()
+    exact = float64_run(weights_path)
+    t_f64 = time.perf_counter() - t3
+    p0 = flat_trees(seed_trees(weights_path, 80)[0])
+    worst = []
+    for nb in range(2):
+        ck = {m: load_checkpoint(os.path.join(out, m, "dp", f"yolov3_dp_checkpoint_{nb:06d}.npz"))
+              for m in ("none", "gloo")}
+        check(ck["gloo"]["mesh_shape"] == (DP_RANKS, 1) and ck["none"]["mesh_shape"] is None,
+              f"dp mesh_shape {ck['gloo']['mesh_shape']}, {ck['none']['mesh_shape']}")
+        a, b = flat_trees(ck["gloo"]["params"]), flat_trees(ck["none"]["params"])
+        err, leaf = max((float(np.abs(a[k] - b[k]).max()), k) for k in b)
+        a_s, b_s = flat_trees(ck["gloo"]["state"]), flat_trees(ck["none"]["state"])
+        s_err, s_leaf = max((float((np.abs(a_s[k] - b_s[k])
+                                    / (1e-5 + 1e-4 * np.abs(b_s[k]))).max()), k) for k in b_s)
+
+        def leaf_errors(new):
+            return np.array([np.abs(new[k] - exact[nb][k]).max()
+                             / np.abs(exact[nb][k] - p0[k]).max() for k in p0])
+
+        e_dp, e_one = leaf_errors(a), leaf_errors(b)
+        line = (f"params {err:.2e} ({leaf}); BN state {s_err:.2f} x its bound ({s_leaf}); "
+                f"against float64, error / largest update: 2 ranks largest {e_dp.max():.2e} "
+                f"median {np.median(e_dp):.2e}, one process largest {e_one.max():.2e} median "
+                f"{np.median(e_one):.2e}")
+        log(f"dp net-batch {nb}: 2 ranks against one process: {line} | {card}")
+        if nb == 0:
+            check(err <= 2e-4, f"dp net-batch 0: params differ by {err} > 2e-4 ({leaf})")
+            check(s_err <= 1, f"dp net-batch 0: BN state {s_leaf} beyond rtol 1e-4 / atol 1e-5 "
+                              f"({s_err} x the bound)")
+            first = ck["gloo"]
+        else:
+            check(e_dp.max() <= 2 * e_one.max() and np.median(e_dp) <= 2 * np.median(e_one),
+                  f"dp net-batch 1: 2 ranks further from float64 than twice one process: {line}")
+        worst.append(f"params {err:.2e}, BN state {s_err:.2f} x its bound")
+    # a checkpoint of 2 ranks does not resume under 1
+    try:
+        train(None, first["params"], first["state"], YoloConfig(), TrainConfig(),
+              checkpoint=first, mesh=M.make_mesh(device="cuda"), log_fn=lambda line: None)
+        refused = False
+    except ValueError as e:
+        refused = "data-parallel width" in str(e)
+    check(refused, "dp: a (2, 1) checkpoint resumed under a 1-rank mesh")
+    loss = [round(r["stats"]["loss"], 4) for r in ref]
+
+    def worst_rel(d):
+        return ", ".join(f"{k} {v:.1e}" for k, v in d.items() if k not in ("nGT",))
+
+    log(f"dp train(mesh=...) YOLOv3-416 fp32, global net-batch {TRAIN_BATCH} x "
+        f"{TRAIN_SUBDIVISIONS} ({TRAIN_BATCH // DP_RANKS} x {TRAIN_SUBDIVISIONS} a rank), "
+        f"{DP_RANKS} gloo ranks on one card (CUDA tensors), 1 net-batch + checkpoint + "
+        f"resume + 1: ranks bit-equal after each net-batch; first net-batch's loss and stats "
+        f"within rtol 1e-4 of one process on the global batch (relative: {worst_rel(rel[0])}), "
+        f"second net-batch's loss within rtol 1e-4 (information, relative: "
+        f"{worst_rel(rel[1])}); losses {loss}; after each net-batch, the largest "
+        f"difference: {'; '.join(worst)} (net-batch 0 within atol 2e-4; net-batch 1 as close "
+        f"to float64 as one process, the float64 run {t_f64:.1f} s); checkpoint mesh_shape "
+        f"{first['mesh_shape']}; a 1-rank "
+        f"NCCL mesh bit-equal to no mesh; a (2, 1) checkpoint refused under a 1-rank mesh | "
+        f"{card}")
+    log(f"time dp (information: the ranks share one card): the resumed net-batch "
+        f"(resume, replication, assembly, step, checkpoint) one process "
+        f"{ref[1]['seconds'] * 1e3:.1f} ms (beside the NCCL child), 1-rank NCCL "
+        f"{nccl[1]['seconds'] * 1e3:.1f} ms, {DP_RANKS} gloo ranks "
+        f"{max(g[1]['seconds'] for g in gloo) * 1e3:.1f} ms; first net-batch "
+        f"{ref[0]['seconds'] * 1e3:.1f} / {nccl[0]['seconds'] * 1e3:.1f} / "
+        f"{max(g[0]['seconds'] for g in gloo) * 1e3:.1f} ms; children {t1 - t0:.1f} s "
+        f"(two at once) and {t2 - t1:.1f} s | {card}")
+
+
+def profiling(card, weights_path, imgs, work, e2e_ms):
+    """(d) StepTimer with CUDA events around 5 detects after 2, beside phase
+    5's e2e; trace() around one int8 detect names the int8 kernels."""
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+    from yolo_v3_tpu_torch.utils.profiling import StepTimer, trace
+
+    config = YoloConfig()
+    q = os.path.join(work, "cli", "q.npz")
+    for precision, det in (
+            ("int8", Detector.from_quantized(q, config, device="cuda")),
+            ("bf16", Detector.from_darknet_weights(weights_path, config, device="cuda",
+                                                   precision="bf16"))):
+        timer = StepTimer(warmup=2)
+        for _ in range(7):
+            with timer.step(n_items=len(imgs)):
+                timer.mark(det.detect(imgs))
+        s = timer.summary()
+        check(s["steps"] == 5 and s["p50_ms"] > 0, f"StepTimer {precision}: {s}")
+        log(f"profiling StepTimer {precision} bs{BATCH} 416 (CUDA events, 5 detects after 2): "
+            f"p50 {s['p50_ms']:.3f} ms, p90 {s['p90_ms']:.3f} ms, mean {s['mean_ms']:.3f} ms, "
+            f"{s['items_per_sec']:.2f} imgs/sec; phase 5 e2e {e2e_ms[precision]:.3f} ms "
+            f"({BATCH * 1000 / e2e_ms[precision]:.2f} imgs/sec) | {card}")
+        if precision == "int8":
+            logdir = os.path.join(work, "trace")
+            with trace(logdir) as prof:
+                det.detect(imgs)
+                torch.cuda.synchronize()
+            with open(os.path.join(logdir, "trace.json")) as f:
+                text = f.read()
+            found = {k: k in text for k in ("fused_entry", "conv_p2d")}
+            device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA)
+            check(all(found.values()) and device_us > 0,
+                  f"trace: kernels named {found}, device time {device_us} us")
+            log(f"profiling trace() around one int8 detect: {len(text)} bytes of Chrome "
+                f"trace naming fused_entry and conv_p2d, device time {device_us / 1e3:.3f} ms "
+                f"| {card}")
+        del det
+        torch.cuda.empty_cache()
+
+
+def cli_dp_profiling_path(card, weights_path, imgs, qtree, work, eval_map, e2e_ms):
+    """Phase 9: the CLI, data parallelism and profiling."""
+    t0 = time.perf_counter()
+    training = start_cli_training(work)
+    cli_serving(card, weights_path, imgs, qtree, work, eval_map)
+    t1 = time.perf_counter()
+    cli_training(card, training)
+    t2 = time.perf_counter()
+    data_parallel(card, weights_path, work)
+    t3 = time.perf_counter()
+    profiling(card, weights_path, imgs, work, e2e_ms)
+    log(f"cli, dp and profiling phase: {time.perf_counter() - t0:.1f} s (cli serving "
+        f"{t1 - t0:.1f} s beside cli training's first children, then cli training "
+        f"{t2 - t1:.1f} s, dp {t3 - t2:.1f} s) | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -1986,17 +2600,19 @@ def main():
     try:
         weights_path = os.path.join(work, "yolov3_seed0.weights")
         imgs = make_images()
-        launches, fp32_rows = main_path(card, weights_path, imgs)
-        launches_i8, qtree, x_i8 = int8_path(card, weights_path, imgs, fp32_rows)
+        e2e = {}
+        launches, fp32_rows = main_path(card, weights_path, imgs, e2e)
+        launches_i8, qtree, x_i8 = int8_path(card, weights_path, imgs, fp32_rows, e2e)
         options = serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8)
         train_summary = training_path(card, weights_path, imgs, work)
         t8 = time.perf_counter()
         host_library(card)
-        eval_path(card, weights_path, qtree, work)
+        eval_map = eval_path(card, weights_path, qtree, work)
         t_data = time.perf_counter()
         data_train_path(card, weights_path, work, train_summary)
         log(f"eval and data phase: {time.perf_counter() - t8:.1f} s (eval "
             f"{t_data - t8:.1f} s) | {card}")
+        cli_dp_profiling_path(card, weights_path, imgs, qtree, work, eval_map, e2e)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2033,5 +2649,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-check"]:
         resume_check(*sys.argv[2:4])
+    elif sys.argv[1:2] in (["--cli"], ["--cli-deterministic"]):
+        cli_child(sys.argv[2:], sys.argv[1] == "--cli-deterministic")
+    elif sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(*sys.argv[2:5])
     else:
         main()

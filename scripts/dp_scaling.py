@@ -1,0 +1,162 @@
+"""Data-parallel training over the cards of one host, against one card.
+
+    python3 scripts/dp_scaling.py OUT                  # one process, card 0
+    torchrun --standalone --nproc-per-node 4 scripts/dp_scaling.py OUT
+                                                       # 4 ranks, NCCL, a card each
+    python3 scripts/dp_scaling.py OUT --compare        # the runs side by side
+
+YOLOv3-416 fp32 (80 classes, Darknet-53 blocks (1,2,8,8,4), random weights
+from ``torch.Generator`` seed 0) trains on 64 seeded in-memory scenes
+(``chip_smoke.SceneDataset``, 1-8 boxes each) at a global net-batch of
+32 x 2 subdivisions, the same for every world size (8 x 2 a rank at 4
+ranks): one net-batch with a checkpoint, then a resume for 5 more.  Each
+run writes, from rank 0, its first net-batch's stats and its ms per
+net-batch (between consecutive stats readbacks, over the last 4) to
+``OUT/ranks<N>.json``; the checkpoints go to ``OUT/ranks<N>/``.
+``--compare`` holds every run's first net-batch against one process's,
+as ``chip_smoke.py`` phase 9 does (params within atol 2e-4, BN state
+within rtol 1e-4 / atol 1e-5, loss and stats within rtol 1e-4, counts
+equal), and prints each run's ms per net-batch and speed-up with the card's
+name and power limit.  ``--device cpu --tiny`` runs the same on CPU ranks
+(gloo) with a small net at 64^2, to rehearse without a card.  Imports no
+JAX.
+"""
+
+import argparse
+import glob
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as S  # noqa: E402
+
+IMAGES = 64
+BATCH = 32                  # the global micro-batch
+SUBDIVISIONS = 2
+NET_BATCHES = 6             # 1, then a resume for 5; timed over the last 4
+TINY = dict(blocks=(1, 1, 1, 1, 1), num_classes=2, dim=64)
+
+
+def run(out, device, tiny):
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+    from yolo_v3_tpu_torch.models import darknet as D
+    from yolo_v3_tpu_torch.parallel import distributed as dist
+    from yolo_v3_tpu_torch.train.checkpoint import load_checkpoint
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    ctx = dist.initialize(backend="gloo" if device == "cpu" else None)
+    mesh = None
+    if ctx.is_distributed:
+        mesh = dist.make_global_mesh(device="cpu" if device == "cpu" else None)
+    if tiny:
+        blocks, num_classes, dim = TINY["blocks"], TINY["num_classes"], TINY["dim"]
+    else:
+        blocks, num_classes, dim = S.DARKNET53_BLOCKS, 80, 416
+    config = YoloConfig(num_classes=num_classes, img_dim=dim)
+    tcfg = TrainConfig(batch_size=BATCH, net_subdivisions=SUBDIVISIONS)
+    dataset = S.SceneDataset(IMAGES, num_classes, hw=dim)
+    params, state = D.init_yolonet(torch.Generator().manual_seed(0), num_classes,
+                                   blocks=blocks)
+    name = f"ranks{ctx.num_processes}"
+    wdir = os.path.join(out, name)
+
+    def data(n):
+        sampler = CyclicSampler(len(dataset), BATCH, shuffle=False, dim=(dim, dim))
+        return dist.make_data_helper(dataset, sampler, ctx, max_net_batches=n,
+                                     net_subdivisions=SUBDIVISIONS)
+
+    marks = []
+
+    def log_fn(line):
+        if line.startswith("net_batch"):
+            marks.append(time.perf_counter())
+
+    run_device = device if mesh is None else mesh.device
+    *_, recorder = train(data(1), params, state, config, tcfg, model_id="dp",
+                         weight_dir=wdir, mesh=mesh, device=run_device,
+                         log_fn=lambda line: None)
+    first = dict(recorder.current_stats)
+    checkpoint = load_checkpoint(os.path.join(wdir, "dp", "yolov3_dp_checkpoint_000000.npz"))
+    train(data(NET_BATCHES), params, state, config, tcfg, checkpoint=checkpoint, mesh=mesh,
+          device=run_device, log_fn=log_fn)
+    if ctx.process_id == 0:
+        steps = np.diff(marks[-5:]) * 1000
+        with open(os.path.join(out, f"{name}.json"), "w") as f:
+            json.dump({"ranks": ctx.num_processes, "stats": first,
+                       "ms_per_net_batch": steps.tolist(),
+                       "device": (torch.cuda.get_device_name(0) if device != "cpu"
+                                  else "cpu")}, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def compare(out, device):
+    from yolo_v3_tpu_torch.train.checkpoint import load_checkpoint
+
+    card = S.card_line() if device != "cpu" else "cpu (rehearsal, not a device time)"
+    runs = {}
+    for path in sorted(glob.glob(os.path.join(out, "ranks*.json"))):
+        with open(path) as f:
+            r = json.load(f)
+        runs[r["ranks"]] = r
+    S.check(1 in runs and len(runs) > 1, f"need one process and a multi-rank run: {sorted(runs)}")
+
+    def ckpt(n):
+        return load_checkpoint(os.path.join(out, f"ranks{n}", "dp",
+                                            "yolov3_dp_checkpoint_000000.npz"))
+
+    one = ckpt(1)
+    base = float(np.median(runs[1]["ms_per_net_batch"]))
+    print(f"1 process: {base:.1f} ms per net-batch of {BATCH} x {SUBDIVISIONS} (median of "
+          f"{runs[1]['ms_per_net_batch']}) | {card}")
+    for n in sorted(runs):
+        if n == 1:
+            continue
+        got = ckpt(n)
+        S.check(got["mesh_shape"] == (n, 1), f"ranks {n}: mesh_shape {got['mesh_shape']}")
+        a, b = S.flat_trees(got["params"]), S.flat_trees(one["params"])
+        err, leaf = max((float(np.abs(a[k] - b[k]).max()), k) for k in b)
+        S.check(err <= 2e-4, f"ranks {n}: params {err} from one process's ({leaf})")
+        a, b = S.flat_trees(got["state"]), S.flat_trees(one["state"])
+        s_err, s_leaf = max((float((np.abs(a[k] - b[k]) / (1e-5 + 1e-4 * np.abs(b[k]))).max()),
+                             k) for k in b)
+        S.check(s_err <= 1, f"ranks {n}: BN state {s_leaf} at {s_err} x rtol 1e-4 / atol 1e-5")
+        for k, v in runs[1]["stats"].items():
+            g = runs[n]["stats"][k]
+            if k in ("nCorrect", "nGT"):
+                S.check(g == v, f"ranks {n}: {k} {g} vs {v}")
+            else:
+                S.check(abs(g - v) <= 1e-4 * abs(v) + 1e-12, f"ranks {n}: {k} {g} vs {v}")
+        ms = float(np.median(runs[n]["ms_per_net_batch"]))
+        print(f"{n} ranks: {ms:.1f} ms per net-batch of {BATCH} x {SUBDIVISIONS} "
+              f"({BATCH // n} x {SUBDIVISIONS} a rank; median of {runs[n]['ms_per_net_batch']}), "
+              f"{base / ms:.2f}x one process; first net-batch: params within {err:.2e} "
+              f"({leaf}), BN state {s_err:.2f} x its bound, loss and stats within rtol 1e-4 "
+              f"| {card}")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiny", action="store_true")
+    args = ap.parse_args()
+    if args.device != "cpu" and not torch.cuda.is_available():
+        sys.exit("dp_scaling: no CUDA device (--device cpu --tiny rehearses on the CPU)")
+    os.makedirs(args.out, exist_ok=True)
+    if args.compare:
+        compare(args.out, args.device)
+    else:
+        run(args.out, args.device, args.tiny)
+
+
+if __name__ == "__main__":
+    main()

@@ -783,3 +783,25 @@ def test_eval_results_on_the_card_match_plain(dev, tmp_path, precision):
     else:
         assert _same_result_rows(out["card"], out["card_plain"])
     assert _same_result_rows(out["card"], out["cpu"])
+
+
+def test_step_timer_times_the_card_with_cuda_events(dev):
+    """``utils/profiling.py::StepTimer`` on the card: CUDA events on the
+    current stream, read after one synchronize; a step of 20 1024^3 matmuls
+    takes device time, and a step that launches nothing next to none."""
+    from yolo_v3_tpu_torch.utils.profiling import StepTimer
+
+    a = torch.randn(1024, 1024, device=dev)
+    timer = StepTimer(warmup=1)
+    for _ in range(4):
+        with timer.step(n_items=20):
+            for _ in range(20):
+                a = a @ a / 32
+            timer.mark(a)
+    with timer.step():
+        pass
+    times = timer.times
+    assert len(times) == 5 and all(t > 0 for t in times[:4])
+    assert times[4] < min(times[1:4])
+    s = timer.summary()
+    assert s["steps"] == 4 and s["items_per_sec"] > 0

@@ -216,8 +216,12 @@ def test_unported_options_raise():
     # (ListDataset), and asking for it on another raises, never falls back
     with pytest.raises(ValueError, match="raw_entry"):
         make_data(1, native_threads=2)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train(make_data(1), *init(), CFG, TCFG, device="cpu", mesh=object())
+    # data parallelism is ported (train(mesh=...)); its height-sharding
+    # axis is not, and asking for it raises
+    from yolo_v3_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="space"):
+        make_mesh(space=2, device="cpu")
 
 
 class _FakeData:

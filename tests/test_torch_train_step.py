@@ -23,6 +23,7 @@ from yolo_v3_tpu_torch.models import weights as TW
 from yolo_v3_tpu_torch.train import optimizer as TO
 from yolo_v3_tpu_torch.train import step as TS
 from yolo_v3_tpu_torch.utils import config as TC
+from torch_float64 import port_in_float64
 
 BLOCKS = (1, 1, 1, 1, 1)
 DIM = 64
@@ -87,23 +88,6 @@ def reference_in_float64():
             yield
         finally:
             JD.jnp, JL.jnp = saved
-
-
-@contextlib.contextmanager
-def port_in_float64():
-    """The port's step on float64 trees and batches, evaluated in float64:
-    ``Tensor.float()``, which the port calls for its BN math, loss and
-    clip, leaves a float64 tensor as it is inside the block."""
-    to_float = torch.Tensor.float
-
-    def keep_float64(self, *args, **kw):
-        return self if self.dtype == torch.float64 else to_float(self, *args, **kw)
-
-    torch.Tensor.float = keep_float64
-    try:
-        yield
-    finally:
-        torch.Tensor.float = to_float
 
 
 def port_float64_run(p, s, imgs, labels, steps, config=None, **train):

@@ -22,8 +22,13 @@ assembles each batch on the native C++ decode and augment pool
 the Python path; a sample that is not a decodable JPEG takes the Python path
 alone, and ``native_stats`` counts the samples of each path.  Unlike the JAX
 package, the native path never turns itself off: without the library, or
-with a dataset or transform it cannot take, it raises.  The JAX package's
-per-host batch sharding comes with the port's multi-card (DDP) slice.
+with a dataset or transform it cannot take, it raises.
+
+``host_id`` / ``n_hosts`` shard every batch over the ranks of a
+data-parallel run (:mod:`yolo_v3_tpu_torch.parallel.distributed`): each
+rank runs the same seed and schedule and assembles contiguous slice
+``host_id`` of each global batch, on whichever assembly route, so the ranks'
+shards concatenate to the single-process batch.
 """
 
 from __future__ import annotations
@@ -89,7 +94,14 @@ class DataHelper:
         drop_keys: tuple = ("rng",),
         num_workers: int = 0,
         native_threads: int = 0,
+        host_id: int = 0,
+        n_hosts: int = 1,
     ):
+        if sampler.batch_size % n_hosts:
+            raise ValueError(
+                f"batch_size {sampler.batch_size} not divisible by {n_hosts} hosts")
+        self.host_id = host_id
+        self.n_hosts = n_hosts
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = sampler.batch_size
@@ -211,9 +223,10 @@ class DataHelper:
 
     def _epoch_batches(self) -> Iterator[Dict[str, Any]]:
         n = len(self.sampler) // self.batch_size
+        shard = self.batch_size // self.n_hosts
         for b in range(n):
-            start = b * self.batch_size
-            yield self._assemble(list(range(start, start + self.batch_size)))
+            start = b * self.batch_size + self.host_id * shard
+            yield self._assemble(list(range(start, start + shard)))
 
     def _gen(self) -> Iterator[Dict[str, Any]]:
         while self.current_batch < self.max_batches:

@@ -22,6 +22,7 @@ built, are at the end.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -198,8 +199,21 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     return F.conv2d(x, w.permute(3, 2, 0, 1), None, stride, (w.shape[0] - 1) // 2)
 
 
+def _global_mean_var(y: torch.Tensor, group):
+    """Per-channel mean and biased variance of an NCHW ``y`` over the batch
+    of every rank of ``group`` (equal shards): ``mean = sum(y) / N``, then
+    ``var = sum((y - mean)^2) / N``, each sum all-reduced; returns (mean,
+    var, N)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    n = y.shape[0] * y.shape[2] * y.shape[3] * torch.distributed.get_world_size(group)
+    mean = all_reduce(y.sum(dim=(0, 2, 3)), group=group) / n
+    var = all_reduce(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3)), group=group) / n
+    return mean, var, n
+
+
 def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
-                  training: bool = False, measure: bool = False):
+                  training: bool = False, measure: bool = False, bn_group=None):
     """Bias-less conv + BatchNorm + LeakyReLU(0.1) (the JAX
     ``conv_bn_leaky``).  The conv's result is rounded to x's dtype, then the
     BN math runs in fp32 whatever that dtype is.  Train mode normalizes with
@@ -209,11 +223,21 @@ def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
     themselves.  Written out as the reference writes it: with
     ``F.batch_norm`` instead, the CPU test fixtures' float32 training steps
     sat further from a float64 evaluation of the reference than its own
-    float32 steps do.  Returns (y in x's dtype, new state)."""
+    float32 steps do.
+
+    ``bn_group`` (a process group of a data-parallel run) makes the batch
+    statistics those of the global batch, as the reference's ``jnp.mean`` /
+    ``jnp.var`` over a batch sharded on the ``data`` axis are: two passes,
+    each summed over this rank's shard and all-reduced with an autograd-aware
+    collective, so the backward reaches every rank's activations.  Returns
+    (y in x's dtype, new state)."""
     y = _conv(x, p["w"], stride).float()
     if training:
-        var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
-        n = y.shape[0] * y.shape[2] * y.shape[3]
+        if bn_group is None:
+            var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+            n = y.shape[0] * y.shape[2] * y.shape[3]
+        else:
+            mean, var, n = _global_mean_var(y, bn_group)
         m = 1.0 if measure else BN_MOMENTUM
         batch_var = var.detach() if measure else var.detach() * (n / max(n - 1, 1))
         new_s = {"mean": (1 - m) * s["mean"] + m * mean.detach(),
@@ -227,21 +251,22 @@ def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
 
 
 def apply_backbone(params: Params, state: State, x: torch.Tensor,
-                   training: bool = False, measure: bool = False):
+                   training: bool = False, measure: bool = False, bn_group=None):
     """Darknet-53 on an NCHW batch; returns the route tensors (c3, c4, c5)
     at strides 8, 16, 32 and the new backbone state."""
     new_state: State = {}
     routes: List[torch.Tensor] = []
-    y, new_state["stem"] = conv_bn_leaky(params["stem"], state["stem"], x, 1,
-                                         training, measure)
+    cbl = functools.partial(conv_bn_leaky, training=training, measure=measure,
+                            bn_group=bn_group)
+    y, new_state["stem"] = cbl(params["stem"], state["stem"], x, 1)
     for i in range(_num_stages(params)):
         sp, ss = params[f"stage{i}"], state[f"stage{i}"]
         ns: State = {}
-        y, ns["down"] = conv_bn_leaky(sp["down"], ss["down"], y, 2, training, measure)
+        y, ns["down"] = cbl(sp["down"], ss["down"], y, 2)
         for b in range(_stage_blocks(sp)):
             rp, rs = sp[f"res{b}"], ss[f"res{b}"]
-            t, s1 = conv_bn_leaky(rp["conv1"], rs["conv1"], y, 1, training, measure)
-            t, s2 = conv_bn_leaky(rp["conv2"], rs["conv2"], t, 1, training, measure)
+            t, s1 = cbl(rp["conv1"], rs["conv1"], y, 1)
+            t, s2 = cbl(rp["conv2"], rs["conv2"], t, 1)
             y = y + t
             ns[f"res{b}"] = {"conv1": s1, "conv2": s2}
         new_state[f"stage{i}"] = ns
@@ -251,7 +276,7 @@ def apply_backbone(params: Params, state: State, x: torch.Tensor,
 
 
 def apply_head(params: Params, state: State, x: torch.Tensor,
-               training: bool = False, measure: bool = False):
+               training: bool = False, measure: bool = False, bn_group=None):
     """Detection head; returns (raw det NCHW, the 5th conv's output, new
     state).  The detection conv adds its bias after its result is rounded
     to x's dtype, as the reference does."""
@@ -259,7 +284,7 @@ def apply_head(params: Params, state: State, x: torch.Tensor,
     y = x
     for i in range(6):
         y, new_state[f"conv{i}"] = conv_bn_leaky(params[f"conv{i}"], state[f"conv{i}"],
-                                                 y, 1, training, measure)
+                                                 y, 1, training, measure, bn_group)
         if i == 4:
             branch = y
     det = _conv(y, params["det"]["w"], 1) + params["det"]["b"][:, None, None]
@@ -267,41 +292,45 @@ def apply_head(params: Params, state: State, x: torch.Tensor,
 
 
 def apply_yolonet(params: Params, state: State, x: torch.Tensor,
-                  training: bool = False, measure: bool = False):
+                  training: bool = False, measure: bool = False, bn_group=None):
     """Full forward (the JAX ``apply_yolonet``): an NHWC image batch in the
     params' compute dtype -> the three raw heads, coarse first, each
     [B, H/s, W/s, 3*(5+C)] NHWC, and the new BN state.  An fp32 forward runs
     with TF32 off (a caller that also runs the backward keeps it off around
-    both, as ``train/step.py`` does)."""
+    both, as ``train/step.py`` does).  ``bn_group``: train-mode BN over the
+    global batch of a data-parallel run (:func:`conv_bn_leaky`)."""
+    mode = dict(training=training, measure=measure, bn_group=bn_group)
     with full_fp32():
         y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         new_state: State = {}
         (c3, c4, c5), new_state["backbone"] = apply_backbone(
-            params["backbone"], state["backbone"], y, training, measure)
+            params["backbone"], state["backbone"], y, **mode)
         det0, br0, new_state["head0"] = apply_head(params["head0"], state["head0"], c5,
-                                                   training, measure)
+                                                   **mode)
         y, s_up0 = conv_bn_leaky(params["up0"]["conv"], state["up0"]["conv"], br0, 1,
-                                 training, measure)
+                                 **mode)
         new_state["up0"] = {"conv": s_up0}
         y = torch.cat([_upsample_nchw(y), c4], dim=1)
         det1, br1, new_state["head1"] = apply_head(params["head1"], state["head1"], y,
-                                                   training, measure)
+                                                   **mode)
         y, s_up1 = conv_bn_leaky(params["up1"]["conv"], state["up1"]["conv"], br1, 1,
-                                 training, measure)
+                                 **mode)
         new_state["up1"] = {"conv": s_up1}
         y = torch.cat([_upsample_nchw(y), c3], dim=1)
         det2, _, new_state["head2"] = apply_head(params["head2"], state["head2"], y,
-                                                 training, measure)
+                                                 **mode)
     return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2)), new_state
 
 
-def recalibrate_bn(params: Params, state: State, batches) -> State:
+def recalibrate_bn(params: Params, state: State, batches, bn_group=None) -> State:
     """BN re-estimation (the JAX ``recalibrate_bn``): the running statistics
     replaced by the mean of the per-batch statistics of ``batches`` (one
     NHWC tensor or an iterable of equally shaped ones), each measured in a
     train-mode forward with momentum 1 and the biased variance.  The
     measuring mode is an argument of the forward, not a global, so calls
-    never see one another's mode, and an error leaves nothing changed."""
+    never see one another's mode, and an error leaves nothing changed.
+    ``bn_group``: each rank passes its shard and the statistics are the
+    global batch's."""
     if isinstance(batches, torch.Tensor):
         batches = [batches]
     batches = list(batches)
@@ -309,7 +338,8 @@ def recalibrate_bn(params: Params, state: State, batches) -> State:
     if len(shapes) != 1:
         raise ValueError(f"recalibrate_bn batches must share one shape, got {shapes}")
     with torch.no_grad():
-        states = [apply_yolonet(params, state, x, training=True, measure=True)[1]
+        states = [apply_yolonet(params, state, x, training=True, measure=True,
+                                bn_group=bn_group)[1]
                   for x in batches]
     if len(states) == 1:
         return states[0]
@@ -791,3 +821,9 @@ def conv_layer_paths(
         if up is not None:
             paths.append((up, "conv"))
     return paths
+
+
+def backbone_conv_paths() -> List[Tuple[str, ...]]:
+    """The backbone's 52 convs, the darknet53.conv.74 load target (the JAX
+    ``backbone_conv_paths``)."""
+    return [p for p in conv_layer_paths() if p[0] == "backbone"]

@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from yolo_v3_tpu_torch.models.darknet import conv_layer_paths, map_tree
+from yolo_v3_tpu_torch.models.darknet import backbone_conv_paths, conv_layer_paths, map_tree
 
 HEADER_LEN = 5
 
@@ -110,6 +110,14 @@ def load_darknet_weights(
                 f"weights file exhausted at layer {'/'.join(p)} "
                 f"(consumed {ptr} of {blob.size} floats)") from None
     return params, state, ptr, header
+
+
+def load_backbone_darknet_weights(params, state, path: str):
+    """darknet53.conv.74-style backbone init for fine-tuning: the backbone's
+    convs from the file's prefix, the rest of the tree as given.  Returns
+    (params, state, n_floats_consumed, header)."""
+    return load_darknet_weights(params, state, path, paths=backbone_conv_paths(),
+                                allow_partial=True)
 
 
 def save_darknet_weights(params, state, path: str, paths=None, seen: int = 0,

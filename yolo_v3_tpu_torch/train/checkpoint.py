@@ -13,7 +13,13 @@ pause/resume bit-identical to one run.
 
 A JAX composite checkpoint loads too, without unpickling its ``__meta__``
 (that would need optax): its params and state come back, and its optimizer
-and data state are None.  Resuming such a run raises.
+and data state are None.  Resuming such a run raises.  Its ``mesh_shape``
+sits in that pickle too, so it loads as None.
+
+``mesh_shape`` records the data-parallel mesh of the writing run, which a
+resume checks (``parallel/distributed.py::assert_mesh_compatible``).  In a
+data-parallel run (``mesh``) rank 0 alone writes and every rank waits at a
+barrier until the file is complete.
 """
 
 from __future__ import annotations
@@ -35,13 +41,20 @@ FORMAT = "yolo_v3_tpu_torch/train-checkpoint-v1"
 
 
 def save_checkpoint(data_helper, params, state, opt_state, recorder, model_id: str,
-                    weight_dir: str) -> str:
+                    weight_dir: str, mesh_shape=None, mesh=None) -> str:
     """Write the composite checkpoint of the current net-batch; returns its
-    path."""
+    path.  With ``mesh``, rank 0 writes (``mesh_shape`` defaults to the
+    mesh's) and every rank returns once the file is complete."""
     model_dir = osp.join(weight_dir, model_id)
-    os.makedirs(model_dir, exist_ok=True)
     path = osp.join(model_dir, _FMT.format(model_id=model_id,
                                            net_batch=data_helper.get_net_batch()))
+    if mesh is not None:
+        if mesh.rank == 0:
+            save_checkpoint(data_helper, params, state, opt_state, recorder, model_id,
+                            weight_dir, mesh_shape if mesh_shape is not None else mesh.shape)
+        mesh.barrier()
+        return path
+    os.makedirs(model_dir, exist_ok=True)
     flat = {}
     flat.update({f"params/{k}": v for k, v in _flatten_with_names(params).items()})
     flat.update({f"state/{k}": v for k, v in _flatten_with_names(state).items()})
@@ -51,6 +64,7 @@ def save_checkpoint(data_helper, params, state, opt_state, recorder, model_id: s
         "data": data_helper.state_dict(),
         "recorder": recorder.state_dict() if recorder is not None else None,
         "opt_count": int(opt_state["count"]),
+        "mesh_shape": list(mesh_shape) if mesh_shape is not None else None,
     }
     flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez(path, **flat)
@@ -59,9 +73,10 @@ def save_checkpoint(data_helper, params, state, opt_state, recorder, model_id: s
 
 def load_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
     """Read a composite checkpoint (the port's or the JAX package's) ->
-    {params, state, opt_state, data, recorder} with tensors on ``device``.
-    For a JAX composite checkpoint (or a bare {params, state} pytree)
-    ``opt_state``, ``data`` and ``recorder`` are None."""
+    {params, state, opt_state, data, recorder, mesh_shape} with tensors on
+    ``device``.  For a JAX composite checkpoint (or a bare {params, state}
+    pytree) ``opt_state``, ``data``, ``recorder`` and ``mesh_shape`` are
+    None."""
     flat, meta = read_npz(path)
     tree = tree_from_flat(flat, device)
     if "params" not in tree or "state" not in tree:
@@ -69,13 +84,15 @@ def load_checkpoint(path: str, device="cpu") -> Dict[str, Any]:
                          f"{sorted(tree)[:8]})")
     if meta is None or meta.get("format") != FORMAT:
         return {"params": tree["params"], "state": tree["state"], "opt_state": None,
-                "data": None, "recorder": None}
+                "data": None, "recorder": None, "mesh_shape": None}
     return {
         "params": tree["params"],
         "state": tree["state"],
         "opt_state": {"count": meta["opt_count"], "trace": tree.get("opt", {})},
         "data": meta["data"],
         "recorder": meta["recorder"],
+        "mesh_shape": (tuple(meta["mesh_shape"]) if meta.get("mesh_shape") is not None
+                       else None),
     }
 
 

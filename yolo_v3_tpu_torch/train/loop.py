@@ -10,8 +10,15 @@ the sampler's schedule, and a dim that changes inside a net-batch raises.
 Checkpoints are written every ``checkpoint_interval`` net-batches and once
 more at the end; ``checkpoint`` (a ``load_checkpoint`` dict) resumes a run
 exactly where it stopped.  SIGTERM or SIGINT lets the net-batch in flight
-finish, checkpoints and returns.  Data parallelism over several cards
-(``mesh``) is not ported yet.
+finish, checkpoints and returns.
+
+Data parallelism (``mesh``, :mod:`yolo_v3_tpu_torch.parallel`): every rank
+runs this loop on its card with its host-sharded ``DataHelper``; params, BN
+state and optimizer state are replicated from rank 0, the step reduces
+over the ranks, a resume checks the checkpoint's mesh, and checkpoints
+record the mesh's shape (rank 0 writes them).  A SIGTERM that reaches one
+rank only stops them all at the same net-batch: the flag is all-reduced
+once a net-batch.  Rank 0 alone logs and feeds the recorder.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import numpy as np
 import torch
 
 from yolo_v3_tpu_torch.models.darknet import map_tree
+from yolo_v3_tpu_torch.parallel import mesh as M
+from yolo_v3_tpu_torch.parallel.distributed import assert_mesh_compatible
 from yolo_v3_tpu_torch.train.checkpoint import save_checkpoint
 from yolo_v3_tpu_torch.train.optimizer import make_optimizer
 from yolo_v3_tpu_torch.train.recorder import Recorder
@@ -73,18 +82,17 @@ def train(
 ):
     """Run training until ``data`` (a DataHelper) is exhausted; returns
     (params, state, opt_state, recorder) with tensors on ``device`` (the
-    card unless the caller asks for another).
+    card unless the caller asks for another; with a ``mesh``, the mesh's
+    device, and ``data`` this rank's host-sharded DataHelper).
 
     ``pipeline_stats=True`` reads each net-batch's stats back one net-batch
     late, so the host assembles the next net-batch while the device works;
     by default they are read right after the step.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...): data parallelism over several cards is not ported yet "
-            "(ROADMAP queue A, parallel/)")
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     recorder = recorder or Recorder()
+    if mesh is not None and mesh.rank != 0:
+        log_fn = lambda s: None          # noqa: E731 (rank 0 logs for the run)
 
     preempted = threading.Event()
     prev_handlers = {}
@@ -99,16 +107,19 @@ def train(
     try:
         return _train(data, params, state, config, tcfg, recorder, model_id, weight_dir,
                       checkpoint, checkpoint_interval, log_fn, pipeline_stats, device,
-                      preempted)
+                      preempted, mesh)
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
 
 
 def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, checkpoint,
-           checkpoint_interval, log_fn, pipeline_stats, device, preempted):
+           checkpoint_interval, log_fn, pipeline_stats, device, preempted, mesh):
     opt = make_optimizer(tcfg)
-    step = make_train_step(config, opt, COMPUTE_DTYPES[tcfg.compute_dtype], tcfg.remat)
+    step = make_train_step(config, opt, COMPUTE_DTYPES[tcfg.compute_dtype], tcfg.remat,
+                           mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
+    world = mesh.world_size if mesh is not None else 1
 
     if checkpoint is not None:
         if checkpoint["opt_state"] is None:
@@ -116,6 +127,8 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
                 "this checkpoint has no optimizer state the port can read (a JAX "
                 "run's optax state, or a bare {params, state} tree): resuming it is "
                 "not supported; start a new run from its params and state instead")
+        if mesh is not None:
+            assert_mesh_compatible(mesh, checkpoint.get("mesh_shape"))
         data.load_state_dict(checkpoint["data"])
         params, state = checkpoint["params"], checkpoint["state"]
         opt_state = {"count": checkpoint["opt_state"]["count"],
@@ -125,6 +138,8 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
     params, state = _to_device(params, device), _to_device(state, device)
     if checkpoint is None:
         opt_state = opt.init(params)
+    if mesh is not None:
+        params, state, opt_state = (M.replicate(mesh, t) for t in (params, state, opt_state))
 
     S = data.net_subdivisions
     micro_imgs, micro_labels = [], []
@@ -151,30 +166,36 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
             labels = np.stack(micro_labels).astype(np.float32, copy=False)
             micro_imgs, micro_labels = [], []
 
-            params, state, opt_state, stats = step(
-                params, state, opt_state, torch.from_numpy(imgs).to(device),
-                torch.from_numpy(labels).to(device))
+            x, y = torch.from_numpy(imgs), torch.from_numpy(labels)
+            x, y = (M.shard_train_inputs(mesh, x, y) if mesh is not None
+                    else (x.to(device), y.to(device)))
+            params, state, opt_state, stats = step(params, state, opt_state, x, y)
 
             if pending is not None:
                 pending.drain(recorder, log_fn)
-            pending = _PendingStats(stats, data.get_net_batch(), data.get_epoch(),
-                                    imgs.shape[2], imgs.shape[0] * imgs.shape[1])
-            if not pipeline_stats:
-                pending.drain(recorder, log_fn)
                 pending = None
+            if lead:
+                pending = _PendingStats(stats, data.get_net_batch(), data.get_epoch(),
+                                        imgs.shape[2], imgs.shape[0] * imgs.shape[1] * world)
+                if not pipeline_stats:
+                    pending.drain(recorder, log_fn)
+                    pending = None
+            # every rank stops at the net-batch where any rank was signalled
+            stop = (mesh.any_rank(preempted.is_set()) if mesh is not None
+                    else preempted.is_set())
 
             # checkpoint every checkpoint_interval net-batches (batch + 1 is
             # S-aligned here); the recorder must be current, so drain first
             if weight_dir is not None and (
-                    preempted.is_set() or (batch + 1) % (S * checkpoint_interval) == 0):
+                    stop or (batch + 1) % (S * checkpoint_interval) == 0):
                 if pending is not None:
                     pending.drain(recorder, log_fn)
                     pending = None
                 save_checkpoint(data, params, state, opt_state, recorder, model_id,
-                                weight_dir)
+                                weight_dir, mesh=mesh)
                 last_ckpt_batch = batch
 
-            if preempted.is_set():
+            if stop:
                 if pending is not None:
                     pending.drain(recorder, log_fn)
                     pending = None
@@ -193,7 +214,8 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
     # compared: the DataHelper's runs one past the last batch on exhaustion.
     if (weight_dir is not None and last_ckpt_batch != batch
             and micro_imgs == [] and batch >= 0):
-        save_checkpoint(data, params, state, opt_state, recorder, model_id, weight_dir)
+        save_checkpoint(data, params, state, opt_state, recorder, model_id, weight_dir,
+                        mesh=mesh)
         log_fn(f"[finish] final checkpoint at net_batch {recorder.net_batches_seen}")
 
     log_fn(f"[finish] net_batch {data.get_net_batch()} batch {data.get_batch()} "

@@ -13,6 +13,18 @@ so the convs run and round in bf16 while the master params, gradients, BN
 statistics and the loss stay fp32.  The casts are written out rather than
 left to ``torch.autocast``, whose cast policy differs.  Everything runs with
 TF32 off, so an fp32 step is fp32 throughout, backward included.
+
+With a ``mesh`` of a data-parallel run (:mod:`~yolo_v3_tpu_torch.parallel.
+mesh`) each rank runs the step on its shard of the global net-batch: BN
+takes its statistics over the global batch, and after the S micro-batches
+the gradients and the stats are all-reduced once, in one flat buffer,
+before the clip sees them.  The loss is a sum over images (the stats divide
+by the local batch, the differentiated loss does not), so the global
+gradient is the SUM of the ranks' gradients; the loss terms of the stats
+are averaged over the ranks and ``nCorrect`` / ``nGT`` summed, and recall
+is taken after.  Every rank then applies the same update to the same
+params, so the ranks stay bit-equal.  ``DistributedDataParallel`` does not
+apply: the step is a function of param trees, not an ``nn.Module``.
 """
 
 from __future__ import annotations
@@ -25,35 +37,59 @@ from torch.utils.checkpoint import checkpoint
 
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models.loss import yolo_loss
+from yolo_v3_tpu_torch.train.optimizer import _build, _leaves
 from yolo_v3_tpu_torch.utils.config import YoloConfig
 from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# stats that are counts over the batch: summed over the ranks, not averaged
+_COUNTS = ("nCorrect", "nGT")
 
 
 def loss_fn(params, state, imgs, labels, config: YoloConfig,
-            compute_dtype: torch.dtype = torch.float32):
+            compute_dtype: torch.dtype = torch.float32, bn_group=None):
     """Forward + loss on one micro-batch; returns (loss, (stats, new BN
     state)).  A uint8 batch is normalized here, on its device, as
-    ``float32 / 255``."""
+    ``float32 / 255``.  ``bn_group``: BN over the global batch
+    (``models/darknet.py::conv_bn_leaky``)."""
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) / 255.0
     if compute_dtype != torch.float32:
         params = D.map_tree(lambda a: a.to(compute_dtype), params)
         imgs = imgs.to(compute_dtype)
-    raws, new_state = D.apply_yolonet(params, state, imgs, training=True)
+    raws, new_state = D.apply_yolonet(params, state, imgs, training=True,
+                                      bn_group=bn_group)
     loss, stats = yolo_loss(raws, labels, config, imgs.shape[1])
     return loss, (stats, new_state)
 
 
+def _all_reduce_grads_and_stats(grads, stats: Dict[str, torch.Tensor], mesh):
+    """Sum the gradient tree and the stats over the ranks of ``mesh`` in one
+    flat all-reduce; the stats' loss terms come back as the ranks' mean."""
+    items = _leaves(grads)
+    keys = sorted(stats)
+    buf = torch.cat([g.reshape(-1) for _, g in items]
+                    + [torch.stack([stats[k].to(items[0][1].dtype) for k in keys])])
+    torch.distributed.all_reduce(buf, group=mesh.group)
+    parts = torch.split(buf, [g.numel() for _, g in items] + [len(keys)])
+    grads = _build([p for p, _ in items], [t.view_as(g) for t, (_, g) in zip(parts, items)])
+    stats = {k: (v if k in _COUNTS else v / mesh.world_size).to(stats[k].dtype)
+             for k, v in zip(keys, parts[-1])}
+    return grads, stats
+
+
 def make_train_step(config: YoloConfig, opt, compute_dtype: torch.dtype = torch.float32,
-                    remat: bool = False):
+                    remat: bool = False, mesh=None):
     """A net-batch step ``(params, state, opt_state, imgs, labels) -> (params,
     state, opt_state, stats)`` for the optimizer ``opt``
     (:class:`~yolo_v3_tpu_torch.train.optimizer.SGD`).  ``remat`` recomputes
     each micro-batch's forward during its backward
-    (``torch.utils.checkpoint``) instead of keeping its activations."""
-    base = functools.partial(loss_fn, config=config, compute_dtype=compute_dtype)
+    (``torch.utils.checkpoint``) instead of keeping its activations.
+    ``mesh``: a data-parallel step on this rank's shard (module doc); a mesh
+    without a process group (one process) changes nothing."""
+    base = functools.partial(loss_fn, config=config, compute_dtype=compute_dtype,
+                             bn_group=mesh.bn_group if mesh is not None else None)
+    reduce = mesh is not None and mesh.group is not None
 
     def micro(leaves, state, im, lb):
         if remat:
@@ -72,6 +108,8 @@ def make_train_step(config: YoloConfig, opt, compute_dtype: torch.dtype = torch.
         stats: Dict[str, torch.Tensor] = {
             k: torch.stack([st[k].detach() for st in per_micro]).mean(dim=0)
             for k in per_micro[0]}
+        if reduce:
+            grads, stats = _all_reduce_grads_and_stats(grads, stats, mesh)
         stats["recall"] = torch.where(
             stats["nGT"] > 0, stats["nCorrect"] / torch.clamp(stats["nGT"], min=1e-9), 0.0)
         params, opt_state = opt.update(grads, opt_state,

@@ -2570,6 +2570,434 @@ def cli_dp_profiling_path(card, weights_path, imgs, qtree, work, eval_map, e2e_m
         f"{t2 - t1:.1f} s, dp {t3 - t2:.1f} s) | {card}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh's space axis (height sharding) and data-parallel serving
+# ---------------------------------------------------------------------------
+
+SPACE_RANKS = 2             # 2 gloo ranks sharing card 0, as phase 9's
+# each rank's launches in one forward: at space 2 every rank runs every layer
+# on its stripe; at data 2 every rank runs the whole net on its 4 images
+SPACE_LAUNCHES = {"bf16": dict(BF16_LAUNCHES, fused_entry=0, res_block_p2d=0),
+                  "fp32": dict(fused_res_block=23, fused_entry=0, conv1x1_p2d=0,
+                               conv3x3_p2d=0, res_block_p2d=0),
+                  "int8": dict(INT8_LAUNCHES, fused_res_block=0)}
+# phase 3's tolerances per kernel and input type (int8: bit-equal)
+SPY_TOL = {("fused_res_block", torch.float32): TOL[torch.float32],
+           ("fused_res_block", torch.bfloat16): TOL[torch.bfloat16],
+           ("conv1x1_p2d", torch.bfloat16): P2D_BF16_TOL,
+           ("conv3x3_p2d", torch.bfloat16): P2D_BF16_TOL,
+           **{(k, torch.int8): dict(rtol=0.0, atol=0.0)
+              for k in ("conv1x1_p2d", "conv3x3_p2d", "res_block_p2d", "fused_entry")}}
+
+
+def spy_kernels(model):
+    """Wrap the model's kernel calls (float: the residual blocks through
+    ``darknet.fused_res_block`` and the p2d convs through each
+    ``_P2dConv``; int8: ``quantized.KERNELS``) to keep the inputs and
+    output of the first launch at each shape and count the launches there;
+    returns (the captures, a function that undoes the wrapping).  The
+    wrappers call the kernel wrappers as they are, so launch counts hold."""
+    from yolo_v3_tpu_torch.models import darknet as D
+    from yolo_v3_tpu_torch.models import quantized as Q
+
+    seen = {}
+
+    def wrap(name, fn, plain):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                                  for a in args if torch.is_tensor(a) or isinstance(a, int))
+            if key not in seen:
+                seen[key] = [plain, [a.clone() if torch.is_tensor(a) else a for a in args],
+                             {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()},
+                             out.clone(), 0]
+            seen[key][4] += 1
+            return out
+        return run
+
+    block, kernels = D.fused_res_block, Q.KERNELS
+    D.fused_res_block = wrap("fused_res_block", block, D.fused_res_block_ref)
+    Q.KERNELS = Q.Int8Ops(*(wrap(name, fn, plain) for name, fn, plain in zip(
+        ("fused_entry", "conv1x1_p2d", "conv3x3_p2d", "res_block_p2d"), kernels, Q.PLAIN)))
+    convs = [m for m in model.modules() if isinstance(m, D._P2dConv)]
+    fns = [m.fns for m in convs]
+    for m in convs:
+        m.fns = (wrap("conv3x3_p2d" if m.taps == 9 else "conv1x1_p2d", *m.fns), m.fns[1])
+
+    def undo():
+        D.fused_res_block, Q.KERNELS = block, kernels
+        for m, f in zip(convs, fns):
+            m.fns = f
+
+    return seen, undo
+
+
+def launch_cost(name, args, out):
+    """(operations, bytes, peak kind) of one launch, counted as phase 3
+    counts them: each input read once, each output written once."""
+    from yolo_v3_tpu_torch.ops import entry_kernel as EK
+
+    x = args[0]
+    if name == "fused_res_block":
+        b, h, w, c = x.shape
+        cmid = args[1].shape[-1]
+        return (2 * b * h * w * (c * cmid + 9 * cmid * c),
+                x.element_size() * (2 * b * h * w * c + 10 * c * cmid + cmid + c),
+                NAMES[x.dtype])
+    kind = "int8" if x.dtype == torch.int8 else "bf16"
+    if name == "fused_entry":
+        b, h = x.shape[0], out.shape[1]
+        ops = sum(2 * b * (2 * h if k == "stem" else h) ** 2 * kh * kw * cin * cout
+                  for k, (kh, kw, cin, cout) in EK.SHAPES.items())
+        return ops, x.numel() + out.numel() + sum(
+            p["w"].numel() + 8 * p["m"].numel() for p in args[1].values()), kind
+    hp, wp = args[-2], args[-1]
+    rows, c = x.shape
+    inner = rows // (hp * wp) * (hp - 2) * (wp - 2)
+    if name == "res_block_p2d":
+        return (2 * inner * 10 * c * (c // 2),
+                2 * x.numel() + args[1].numel() + args[4].numel() + 8 * (c // 2 + c), kind)
+    taps, n = (9 if name == "conv3x3_p2d" else 1), args[2].shape[0]
+    ops = 2 * inner * taps * c * n
+    if kind == "bf16":
+        return ops, 2 * (rows * c + args[1].numel() + rows * n) + 8 * n, kind
+    return ops, rows * c + args[1].numel() + 8 * n + rows * n * out.element_size(), kind
+
+
+def check_and_time(seen):
+    """Each captured launch against its plain version on the same inputs, at
+    phase 3's tolerances, with its launch plan (the residual block's cluster
+    size; the p2d kernel's tiles, checked against ``plan_tiles`` by
+    :func:`plan_line`) and the device ms of the kernel and of the plain
+    version at that shape beside the bound: one dict a shape."""
+    from yolo_v3_tpu_torch.ops.fused_res_block import cluster_size
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = kernel_counters()
+    out = []
+    for key, (plain, args, kw, got, count) in seen.items():
+        name, x = key[0], args[0]
+        want = plain(*args, **kw)
+        tol = SPY_TOL[(name, x.dtype)]
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+        if name == "fused_res_block":
+            plan = f"cluster {cluster_size(*x.shape, args[1].shape[-1], x.dtype)}"
+        elif name in ("conv1x1_p2d", "conv3x3_p2d"):
+            plan = "tiles " + plan_line(x.shape[0], x.shape[1], args[2].shape[0],
+                                        9 if name == "conv3x3_p2d" else 1, x.dtype, sms)[0]
+        else:
+            plan = ""
+        ops, nbytes, kind = launch_cost(name, args, got)
+        b_ms, by = bound(ops, nbytes, kind)
+        out.append(dict(name=name, shape=list(x.shape), dtype=str(x.dtype).split(".")[-1],
+                        count=count, max_abs_err=float(diff.max()), ok=ok, plan=plan,
+                        ms=device_ms(lambda: kernels[name](*args, **kw)),
+                        plain_ms=device_ms(lambda: plain(*args, **kw)),
+                        bound_ms=b_ms, bound_by=by))
+    return out
+
+
+def space_worker(weights_path, work):
+    """Child process of phase 10 (``--space-worker``): one of 2 gloo ranks on
+    card 0.  (a) ``Detector(mesh=(2, 1))`` in bf16, fp32 and int8 (phase
+    9's artifact) on phase 4's 8 images, 4 a rank; (b) ``Detector(mesh=(1,
+    2))`` in bf16 and fp32, each launch's inputs kept; (c) ``train(mesh=(1,
+    2))`` for one fp32 net-batch of phase 7's scenes with a checkpoint.
+    Writes ``space/rank<r>.npz`` (rows, heads) and ``space/rank<r>.json``
+    (launch counts, each kept launch against its plain version, ms, the
+    training digest and stats)."""
+    from yolo_v3_tpu_torch.data.sampler import CyclicSampler
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.parallel import distributed as dist
+    from yolo_v3_tpu_torch.parallel import mesh as M
+    from yolo_v3_tpu_torch.train.loop import train
+    from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ctx = dist.initialize(backend="gloo")
+    dp = dist.make_global_mesh(device="cuda:0")           # the ranks share one card
+    sp = dist.make_global_mesh(space=SPACE_RANKS, device="cuda:0")
+    check(dp.shape == (2, 1) and sp.shape == (1, 2), f"meshes {dp.shape} {sp.shape}")
+    config = YoloConfig()
+    imgs = make_images()
+    out = os.path.join(work, "space")
+    arrays, info = {}, {"launches": {}, "spied": {}, "ms": {}}
+    counters = kernel_counters()
+
+    def detector(precision, mesh):
+        if precision == "int8":
+            return Detector.from_quantized(os.path.join(work, "cli", "q.npz"), config,
+                                           mesh=mesh)
+        return Detector.from_darknet_weights(weights_path, config, precision=precision,
+                                             mesh=mesh)
+
+    for tag, mesh, precisions in (("data", dp, ("bf16", "fp32", "int8")),
+                                  ("space", sp, ("bf16", "fp32"))):
+        for precision in precisions:
+            run = f"{tag}/{precision}"
+            det = detector(precision, mesh)
+            seen, undo = spy_kernels(det.model)
+            try:
+                rows, info["launches"][run] = counted(counters, lambda: det.detect(imgs))
+            finally:
+                undo()
+            # each kept launch checked and timed with the card to this rank alone
+            for r in range(SPACE_RANKS):
+                if r == ctx.process_id:
+                    info["spied"][run] = check_and_time(seen)
+                torch.distributed.barrier()
+            del seen
+            arrays.update({f"{run}/rows/{i}": r for i, r in enumerate(rows)})
+            x, _ = det.preprocess(imgs[M.data_slice(mesh, len(imgs))])
+            with torch.inference_mode():
+                xd = x if x.dtype == torch.uint8 else x.to(det.compute_dtype)
+                heads = (det.model(M.stripe(mesh, xd, 1).contiguous(), mesh=mesh)
+                         if tag == "space" else det.model(xd))
+            arrays.update({f"{run}/heads/{i}": h.float().cpu().numpy()
+                           for i, h in enumerate(heads)})
+            info["ms"][run] = cuda_ms(lambda: det.detect(imgs), iters=3, warmup=1)
+            del det, heads
+            torch.cuda.empty_cache()
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, net_subdivisions=TRAIN_SUBDIVISIONS)
+    dataset = SceneDataset(TRAIN_IMAGES, config.num_classes)
+    params, state = seed_trees(weights_path, config.num_classes)
+    sampler = CyclicSampler(len(dataset), TRAIN_BATCH, shuffle=False, dim=(416, 416))
+    data = dist.make_data_helper(dataset, sampler, ctx, space=SPACE_RANKS, max_net_batches=1,
+                                 net_subdivisions=TRAIN_SUBDIVISIONS, prefetch=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s, _, recorder = train(data, params, state, config, tcfg, model_id="space",
+                              weight_dir=os.path.join(out, "ckpt"), mesh=sp,
+                              log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    info["train"] = {"digest": digest(p, s), "seconds": time.perf_counter() - t0,
+                     "stats": dict(recorder.current_stats) if ctx.process_id == 0 else None}
+    np.savez(os.path.join(out, f"rank{ctx.process_id}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{ctx.process_id}.json"), "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+
+
+def kept_launches(card, run, rank, kept):
+    """Check a rank's kept launches of one run (each within phase 3's
+    tolerance of its plain version), log them, and return per kernel its
+    per-forward sums: {kernel: {launches, ms, plain_ms, bound_ms, bound_by,
+    max_abs_err}}."""
+    per = {}
+    for k in kept:
+        check(k["ok"], f"{run} rank {rank}: {k['name']} at {k['shape']} {k['dtype']} against "
+                       f"its plain version: max abs err {k['max_abs_err']} beyond phase 3's "
+                       f"tolerance")
+        acc = per.setdefault(k["name"], dict(launches=0, ms=0.0, plain_ms=0.0,
+                                             max_abs_err=0.0, _bound_shares={
+                                                 "operations": 0.0, "bytes": 0.0}))
+        acc["launches"] += k["count"]
+        acc["ms"] += k["count"] * k["ms"]
+        acc["plain_ms"] += k["count"] * k["plain_ms"]
+        acc["bound_ms"] = acc.get("bound_ms", 0.0) + k["count"] * k["bound_ms"]
+        acc["_bound_shares"][k["bound_by"]] += k["count"] * k["bound_ms"]
+        acc["max_abs_err"] = max(acc["max_abs_err"], k["max_abs_err"])
+    log(f"{run} rank {rank}, each kernel at each shape it ran at (x launches a forward): "
+        + "; ".join(f"{k['name']} {k['shape']} {k['dtype']} {k['plan']} x{k['count']} "
+                    f"err {k['max_abs_err']:.1e} kernel_ms={k['ms']:.4f} "
+                    f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f} "
+                    f"({k['bound_by']})" for k in kept) + f" | {card}")
+    for name, acc in per.items():
+        finish_bound(acc)
+        log(f"{run} rank {rank} per forward: {name} x{acc['launches']} kernel_ms="
+            f"{acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.4f} "
+            f"({acc['bound_by']}) | {card}")
+    return per
+
+
+def spied_counts_agree(run, rank, per, counts):
+    """Check that the launches the spy saw in a run (``per``, from
+    :func:`kept_launches`) are the ones the kernel wrappers counted in it
+    (``counts``).  A ``res_block_p2d`` launches one ``conv1x1_p2d`` and one
+    ``conv3x3_p2d``, which the wrappers count and the spy, wrapping only the
+    block, does not see."""
+    spied = {k: v["launches"] for k, v in per.items()}
+    blocks = spied.get("res_block_p2d", 0)
+    want = {k: n - (blocks if k in ("conv1x1_p2d", "conv3x3_p2d") else 0)
+            for k, n in counts.items()}
+    want = {k: n for k, n in want.items() if n}
+    check(spied == want, f"{run} rank {rank}: the spy saw launches {spied}, the kernel "
+                         f"wrappers counted {want}")
+
+
+def heads_within(got, want, precision):
+    """(within phase 5's head bound, max abs err, max|head|): fp32 rtol 1e-3
+    and atol 1e-3 * max|head|, bf16 5e-2 * max|head|."""
+    scale = float(np.abs(want).max())
+    diff = np.abs(got - want)
+    ok = (diff.max() <= 5e-2 * scale if precision == "bf16"
+          else bool((diff <= 1e-3 * scale + 1e-3 * np.abs(want)).all()))
+    return ok, float(diff.max()), scale
+
+
+def space_path(card, weights_path, imgs, work):
+    """Phase 10: data-parallel serving (batch 8 split 4 / 4) in bf16, fp32
+    and int8, height-sharded serving (stripes 224 / 192) in bf16 and fp32,
+    and one height-sharded fp32 training net-batch of 8 x 2, on 2 gloo ranks
+    sharing the card, against one process.  Returns each run's launch
+    counts per rank."""
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.parallel import mesh as M
+    from yolo_v3_tpu_torch.train.checkpoint import load_checkpoint
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "space")
+    os.makedirs(out)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE=str(SPACE_RANKS), LOCAL_RANK="0")
+    env.pop("LOCAL_WORLD_SIZE", None)
+    me = [os.path.abspath(__file__), "--space-worker", weights_path, work]
+    procs = {f"space worker (gloo rank {r})": start(me, dict(env, RANK=str(r)))
+             for r in range(SPACE_RANKS)}
+
+    # one process on the whole batch, while the ranks run
+    config = YoloConfig()
+    one = {}
+    with torch.inference_mode():
+        for precision in ("bf16", "fp32", "int8"):
+            det = (Detector.from_quantized(os.path.join(work, "cli", "q.npz"), config)
+                   if precision == "int8" else
+                   Detector.from_darknet_weights(weights_path, config, precision=precision))
+            x, _ = det.preprocess(imgs)
+            xd = x if x.dtype == torch.uint8 else x.to(det.compute_dtype)
+            one[precision] = (det.detect(imgs), [h.float().cpu().numpy() for h in det.model(xd)],
+                              cuda_ms(lambda: det.detect(imgs), iters=3, warmup=1))
+            del det
+            torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    finish_all(procs, timeout=600)
+    t2 = time.perf_counter()
+    ranks, infos = [], []
+    for r in range(SPACE_RANKS):
+        with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            infos.append(json.load(f))
+
+    def rows(r, tag, precision):
+        return [ranks[r][f"{tag}/{precision}/rows/{i}"] for i in range(len(imgs))]
+
+    per_forward = {}
+    for run in infos[0]["spied"]:
+        per_forward[run] = [kept_launches(card, run, r, infos[r]["spied"][run])
+                            for r in range(SPACE_RANKS)]
+        for r in range(SPACE_RANKS):
+            spied_counts_agree(run, r, per_forward[run][r], infos[r]["launches"][run])
+
+    # (a) data-parallel serving
+    for precision in ("bf16", "fp32", "int8"):
+        want_rows, want_heads, one_ms = one[precision]
+        for r in range(SPACE_RANKS):
+            n = infos[r]["launches"][f"data/{precision}"]
+            check(n == SPACE_LAUNCHES[precision],
+                  f"dp {precision} rank {r} launches {n}, want {SPACE_LAUNCHES[precision]}")
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(rows(r, "data", precision), rows(0, "data", precision))),
+                  f"dp {precision}: rank {r} returned other rows than rank 0")
+        got = rows(0, "data", precision)
+        check_rows(got, imgs, config.num_classes)
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want_rows))
+        if precision == "int8":
+            check(equal, "dp int8: rows differ from one process's")
+            case = "rows bit-equal to one process's"
+        elif equal:
+            case = "rows bit-equal to one process's"
+        else:
+            errs = []
+            for r in range(SPACE_RANKS):
+                sl = M.data_slice(M.Mesh((2, 1), r, 2, torch.device("cpu")), len(imgs))
+                for i, w in enumerate(want_heads):
+                    ok, err, scale = heads_within(ranks[r][f"data/{precision}/heads/{i}"],
+                                                  w[sl], precision)
+                    check(ok, f"dp {precision} rank {r} head{i}: err {err} (max|head| {scale})")
+                    errs.append(err)
+            check([len(a) for a in got] == [len(b) for b in want_rows],
+                  f"dp {precision}: valid rows {[len(a) for a in got]} vs "
+                  f"{[len(b) for b in want_rows]}")
+            case = (f"the kernels' plan differs with the batch: heads within phase 5's bound "
+                    f"(max abs err {max(errs):.3e}), valid rows per image equal")
+        log(f"dp serving {precision}: Detector(mesh=(2, 1)) on 8 images, 4 a rank, each rank "
+            f"returns all 8 images' rows; {case}; launches per rank "
+            f"{infos[0]['launches'][f'data/{precision}']} | {card}")
+        log(f"time dp serving {precision} (information: the ranks share one card): detect ms "
+            f"per rank {[round(i['ms'][f'data/{precision}'], 3) for i in infos]}, one process "
+            f"{one_ms:.3f} | {card}")
+
+    # (b) height-sharded serving
+    for precision in ("bf16", "fp32"):
+        want_rows, want_heads, one_ms = one[precision]
+        for r in range(SPACE_RANKS):
+            n = infos[r]["launches"][f"space/{precision}"]
+            check(n == SPACE_LAUNCHES[precision],
+                  f"space {precision} rank {r} launches {n}, want {SPACE_LAUNCHES[precision]}")
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(rows(r, "space", precision), rows(0, "space", precision))),
+                  f"space {precision}: rank {r} returned other rows than rank 0")
+        errs = []
+        for i, w in enumerate(want_heads):
+            ok, err, scale = heads_within(ranks[0][f"space/{precision}/heads/{i}"], w, precision)
+            check(ok, f"space {precision} head{i}: err {err} (max|head| {scale})")
+            errs.append(err)
+        got = rows(0, "space", precision)
+        check_rows(got, imgs, config.num_classes)
+        check(all(a.shape == b.shape and np.allclose(a, b, rtol=0, atol=1e-2)
+                  for a, b in zip(got, want_rows)),
+              f"space {precision}: rows beyond atol 1e-2 of one process's or other valid "
+              f"counts ({[len(a) for a in got]} vs {[len(b) for b in want_rows]})")
+        log(f"space serving {precision}: Detector(mesh=(1, 2)), stripes 224 / 192 rows of 8 "
+            f"images: heads within phase 5's bound of one process's (max abs err "
+            f"{', '.join(f'{e:.3e}' for e in errs)}), rows of equal validity within atol 1e-2; "
+            f"launches per rank {infos[0]['launches'][f'space/{precision}']}; every kernel "
+            f"launch at its stripe shape within phase 3's tolerance of its plain version "
+            f"(above) | {card}")
+        log(f"time space serving {precision} (information: the ranks share one card): detect "
+            f"ms per rank {[round(i['ms'][f'space/{precision}'], 3) for i in infos]}, one "
+            f"process {one_ms:.3f} | {card}")
+
+    # (c) height-sharded training, against phase 9's one process on the same
+    # model, scenes and net-batch (deterministic algorithms in both)
+    check(infos[0]["train"]["digest"] == infos[1]["train"]["digest"],
+          "space training: the ranks' params and BN state differ")
+    ck = load_checkpoint(os.path.join(out, "ckpt", "space", "yolov3_space_checkpoint_000000.npz"))
+    check(ck["mesh_shape"] == (1, SPACE_RANKS), f"space mesh_shape {ck['mesh_shape']}")
+    ref = load_checkpoint(os.path.join(work, "dp", "none", "dp", "yolov3_dp_checkpoint_000000.npz"))
+    with open(os.path.join(work, "dp", "none.rank0.json")) as f:
+        ref_run = json.load(f)[0]
+    a, b = flat_trees(ck["params"]), flat_trees(ref["params"])
+    err, leaf = max((float(np.abs(a[k] - b[k]).max()), k) for k in b)
+    check(err <= 2e-4, f"space training: params {err} from one process's ({leaf})")
+    rel = {}
+    for k, v in ref_run["stats"].items():
+        g = infos[0]["train"]["stats"][k]
+        rel[k] = abs(g - v) / max(abs(v), 1e-12)
+        if k in ("nCorrect", "nGT"):
+            check(g == v, f"space training: {k} {g} vs {v}")
+        else:
+            check(abs(g - v) <= 2e-4 * abs(v) + 2e-4, f"space training: {k} {g} vs {v}")
+    log(f"space train(mesh=(1, 2)) YOLOv3-416 fp32, net-batch {TRAIN_BATCH} x "
+        f"{TRAIN_SUBDIVISIONS} in stripes of 224 / 192 rows: ranks bit-equal; against one "
+        f"process (phase 9): params within {err:.2e} ({leaf}; atol 2e-4), stats within rtol "
+        f"2e-4 ({', '.join(f'{k} {v:.1e}' for k, v in rel.items() if k != 'nGT')}); "
+        f"checkpoint mesh_shape {ck['mesh_shape']} | {card}")
+    log(f"time space training (information: the ranks share one card): the net-batch "
+        f"(replication, assembly, step, checkpoint) {max(i['train']['seconds'] for i in infos) * 1e3:.1f} "
+        f"ms a rank, one process {ref_run['seconds'] * 1e3:.1f} ms (phase 9) | {card}")
+    log(f"space phase: {time.perf_counter() - t0:.1f} s (one process {t1 - t0:.1f} s beside "
+        f"the ranks, then the ranks {t2 - t1:.1f} s more) | {card}")
+    return {run: {name: dict(launches=infos[0]["launches"][run][name],
+                             per_rank=[pf[name] for pf in per_forward[run] if name in pf])
+                  for name in infos[0]["launches"][run]}
+            for run in infos[0]["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
@@ -2613,6 +3041,7 @@ def main():
         log(f"eval and data phase: {time.perf_counter() - t8:.1f} s (eval "
             f"{t_data - t8:.1f} s) | {card}")
         cli_dp_profiling_path(card, weights_path, imgs, qtree, work, eval_map, e2e)
+        mesh_launches = space_path(card, weights_path, imgs, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2639,6 +3068,15 @@ def main():
                 entry["design"] = ("row-streaming strip walk, wgmma s8 on swizzled row rings, "
                                    "weights by TMA from a producer warp")
             kernels.append(entry)
+    # phase 10's runs, each counted from 0 on each rank (data/...: 4 of the 8
+    # images a rank; space/...: a stripe of every image): rank 0's launches,
+    # and each rank's per-forward device ms, plain ms and bound at the shapes
+    # it ran
+    for entry in kernels:
+        name, mode = entry["name"].rsplit("_", 1)
+        precision = {"f32": "fp32"}.get(mode, mode)
+        entry["mesh_runs"] = {run: kernels_of[name] for run, kernels_of in mesh_launches.items()
+                              if run.endswith("/" + precision)}
     kernels += options
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2653,5 +3091,7 @@ if __name__ == "__main__":
         cli_child(sys.argv[2:], sys.argv[1] == "--cli-deterministic")
     elif sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--space-worker"]:
+        space_worker(*sys.argv[2:4])
     else:
         main()

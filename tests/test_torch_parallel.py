@@ -192,7 +192,7 @@ def test_make_mesh_without_a_process_group(monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", "3")
     assert M.make_mesh().device == torch.device("cuda", 3)
     assert M.make_mesh(device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="space"):
+    with pytest.raises(ValueError, match="space=2"):     # one rank has no 2 stripes
         M.make_mesh(space=2)
     with pytest.raises(ValueError, match="n_devices"):
         M.make_mesh(n_devices=8)
@@ -264,8 +264,7 @@ def test_data_helper_refuses_an_uneven_shard():
 
 
 def test_assert_mesh_compatible_as_jax():
-    """tests/test_distributed.py::TestMeshCompat's cases, on mesh records (a
-    mesh with a space axis is not made by the port)."""
+    """tests/test_distributed.py::TestMeshCompat's cases, on mesh records."""
     mesh = M.Mesh((4, 2), 0, 4, torch.device("cpu"))
     dist.assert_mesh_compatible(mesh, (4, 2))
     dist.assert_mesh_compatible(mesh, (4, 1))       # space may differ
@@ -417,7 +416,7 @@ def test_two_ranks_remat_is_bit_equal(two_ranks):
 
 
 def test_two_rank_batchnorm_equals_jax_on_the_global_batch(net, two_ranks):
-    """``apply_yolonet(training=True, bn_group=...)`` on each rank's half of
+    """``apply_yolonet(training=True, mesh=...)`` on each rank's half of
     micro-batch 0: the heads, concatenated, and the new running statistics
     equal JAX's ``apply_yolonet`` on the whole micro-batch."""
     p, s = net

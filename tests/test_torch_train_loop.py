@@ -216,11 +216,11 @@ def test_unported_options_raise():
     # (ListDataset), and asking for it on another raises, never falls back
     with pytest.raises(ValueError, match="raw_entry"):
         make_data(1, native_threads=2)
-    # data parallelism is ported (train(mesh=...)); its height-sharding
-    # axis is not, and asking for it raises
+    # data parallelism and its height-sharding axis are ported
+    # (train(mesh=...)); a space axis wider than the ranks raises
     from yolo_v3_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="space"):
+    with pytest.raises(ValueError, match="space=2"):
         make_mesh(space=2, device="cpu")
 
 

@@ -7,7 +7,10 @@ the int8 kernels), the display or eval postprocess with class-wise greedy
 NMS, and the mapping of boxes back to original-image pixels.  Only the
 compact [B, M, 8] result returns to the host.  With ``resize_on_device=False``
 the host resizes with OpenCV (imported only there) and int8 takes the
-uint8 images as they are (the uint8 feed).
+uint8 images as they are (the uint8 feed).  Over a mesh of processes a
+batch is split over the ``data`` axis (every precision) and each image's
+rows over the ``space`` axis (bf16 and fp32), and every rank returns the
+whole batch's rows.
 
 Output rows per image: [cls, x, y, w, h, prob, obj], xywh in original-image
 pixels.
@@ -27,6 +30,9 @@ from yolo_v3_tpu_torch.ops import boxes as B
 from yolo_v3_tpu_torch.ops.letterbox import (letterbox_device, letterbox_host,
                                              letterbox_host_u8, resize_cubic_device)
 from yolo_v3_tpu_torch.ops.postprocess import detections_to_lists, postprocess_from_raws
+from yolo_v3_tpu_torch.parallel import mesh as M
+from yolo_v3_tpu_torch.parallel.halo import gather_batch
+from yolo_v3_tpu_torch.parallel.mesh import STRIPE_ROWS
 from yolo_v3_tpu_torch.utils.config import YoloConfig
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -44,6 +50,7 @@ def detect_fn(
     is_letterbox: bool = True,
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Device pipeline on a :class:`~yolo_v3_tpu_torch.models.darknet.
     YoloNetFolded` or :class:`~yolo_v3_tpu_torch.models.quantized.
@@ -55,15 +62,30 @@ def detect_fn(
     was made, so how boxes map back.  ``plain`` runs the kernels' plain
     versions.  Returns [B, M, 8]: x, y, w, h (original-image pixels), obj,
     prob, cls, valid.
+
+    ``mesh`` (a ``(data, space)`` mesh, ``parallel/mesh.py``): ``x`` and
+    ``org_dims`` are this rank's data shard of the batch (``data_shard``),
+    ``x`` cut to this rank's stripe of rows under ``space`` > 1 (``stripe``;
+    bf16 and fp32 only), and every rank returns the rows of the whole batch,
+    as JAX's ``detect_fn`` jitted over a mesh does.
     """
-    img_dim = x.shape[1]
-    raws = model(x if x.dtype == torch.uint8 else x.to(compute_dtype), plain=plain)
+    space = mesh is not None and mesh.space_size > 1
+    if space and not isinstance(model, D.YoloNetFolded):
+        raise NotImplementedError(
+            "int8 serving under a space axis is not ported (ROADMAP queue A): the "
+            "fused_entry kernel runs stem, down0, a block and down1 in one launch, so its "
+            "stripes need a halo of several input rows")
+    xa = x if x.dtype == torch.uint8 else x.to(compute_dtype)
+    raws = model(xa, plain=plain, mesh=mesh) if space else model(xa, plain=plain)
+    # the gathered heads are whole: the coarse one has a row per 32 input rows
+    img_dim = raws[0].shape[1] * STRIPE_ROWS if space else x.shape[1]
     res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
                                 nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms)
     org = org_dims.to(torch.float32)
     xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
                                 img_dim, img_dim, is_letterbox=is_letterbox)
-    return torch.cat([xywh, res[..., 4:]], dim=-1)
+    out = torch.cat([xywh, res[..., 4:]], dim=-1)
+    return gather_batch(out, mesh) if mesh is not None else out
 
 
 class Detector:
@@ -85,6 +107,14 @@ class Detector:
     synthetic batch (uniform noise from ``np.random.default_rng(0)``, 8
     images).  A quantized tree (``quantized_tree``, :meth:`from_quantized`)
     skips calibration.
+
+    ``mesh`` (a ``(data, space)`` mesh, ``parallel/mesh.py``): the detector
+    serves on the mesh's card, :meth:`detect` preprocesses only this rank's
+    data shard of the images (cut to its stripe of rows under ``space`` >
+    1, bf16 and fp32 only) and returns the rows of every image on every
+    rank.  Every rank gets the same images.  int8 calibrates on each rank,
+    on the same images; a quantized artifact serves every rank the same
+    tree without that.
     """
 
     def __init__(
@@ -98,6 +128,7 @@ class Detector:
         resize_on_device: bool = True,
         calib_images=None,
         quantized_tree=None,
+        mesh=None,
     ):
         if quantized_tree is not None:
             precision = "int8"
@@ -106,7 +137,8 @@ class Detector:
                 f"precision must be 'bf16', 'fp32' or 'int8', got {precision!r}")
         self.config = config
         self.precision = precision
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.letterbox = letterbox
         self.resize_on_device = resize_on_device
         self._u8_feed = False
@@ -226,9 +258,13 @@ class Detector:
             conf_thr = self.config.eval_conf_thr if is_eval else self.config.conf_thr
         if nms_thr is None:
             nms_thr = self.config.eval_nms_thr if is_eval else self.config.nms_thr
+        if self.mesh is not None:
+            images = M.data_shard(self.mesh, images)
         x, org = self.preprocess(images, dim)
+        if self.mesh is not None:
+            x = M.stripe(self.mesh, x, 1).contiguous()
         res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
                         is_eval=is_eval, use_nms=use_nms, is_letterbox=self.letterbox,
-                        compute_dtype=self.compute_dtype, plain=plain)
+                        compute_dtype=self.compute_dtype, plain=plain, mesh=self.mesh)
         # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
         return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

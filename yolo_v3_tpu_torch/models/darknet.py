@@ -17,6 +17,13 @@ leaky in float32 and round once, as the reference's ``_conv_bias_leaky``
 does; in fp32 they run on ``F.conv2d``, and the whole forward runs with TF32
 off.  The space-to-depth weight folds, from which the int8 tree's entry is
 built, are at the end.
+
+Both forwards take a ``(data, space)`` mesh (``parallel/mesh.py``).
+Under ``space`` > 1 the input is this rank's stripe of the images' rows;
+before every 3x3 conv the stripe is extended by its neighbours' rows
+(``parallel/halo.py``), so the conv pads W only, and a residual block runs
+its kernel on the stripe extended by a row on each inner side and is cut
+back after.  The 1x1 convs, the upsamples and the concats stay local.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
+from yolo_v3_tpu_torch.parallel.halo import edge_rows, gather_rows, halo_exchange
 from yolo_v3_tpu_torch.utils.precision import full_fp32, tf32_conv
 
 Params = Dict[str, Any]
@@ -193,27 +201,64 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 # state are the same trees as above, with HWIO conv weights.
 # ---------------------------------------------------------------------------
 
-def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+def _space_sharded(mesh) -> bool:
+    return mesh is not None and mesh.space_size > 1
+
+
+def _halo(x: torch.Tensor, stride: int, mesh) -> torch.Tensor:
+    """A stripe of NCHW rows with the halo a 3x3 conv of ``stride`` reads
+    beyond it: a row above and a row below at stride 1; a row above at
+    stride 2, whose output row i reads input rows 2i-1 .. 2i+1 (stripes
+    start on even rows).  The conv then pads W only."""
+    return halo_exchange(x, mesh, 1, 1 if stride == 1 else 0)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, mesh=None) -> torch.Tensor:
     """'SAME' conv of an NCHW x by an HWIO weight, in x's dtype (bf16 out
-    for bf16 operands, as the reference's ``f32_out=False``)."""
-    return F.conv2d(x, w.permute(3, 2, 0, 1), None, stride, (w.shape[0] - 1) // 2)
+    for bf16 operands, as the reference's ``f32_out=False``).  Under a
+    ``space`` > 1 ``mesh``, x is a stripe of rows and a 3x3 conv reads its
+    neighbours' rows through :func:`_halo`."""
+    pad = (w.shape[0] - 1) // 2
+    if pad and _space_sharded(mesh):
+        return F.conv2d(_halo(x, stride, mesh), w.permute(3, 2, 0, 1), None, stride, (0, pad))
+    return F.conv2d(x, w.permute(3, 2, 0, 1), None, stride, pad)
 
 
-def _global_mean_var(y: torch.Tensor, group):
+# under a space axis the pixel count rides in the statistics' all-reduce as
+# two float parts, each summed exactly: count // 2**12 and count % 2**12
+_COUNT_SPLIT = 4096
+
+
+def _global_mean_var(y: torch.Tensor, mesh):
     """Per-channel mean and biased variance of an NCHW ``y`` over the batch
-    of every rank of ``group`` (equal shards): ``mean = sum(y) / N``, then
-    ``var = sum((y - mean)^2) / N``, each sum all-reduced; returns (mean,
-    var, N)."""
+    of every rank of ``mesh.bn_group``: ``mean = sum(y) / N``, then ``var =
+    sum((y - mean)^2) / N``, each sum all-reduced.  On a data axis alone the
+    shards are equal and N is the local count times the world size, known on
+    the host.  The stripes of a ``space`` axis may differ in height, so there
+    N is summed in the first all-reduce; its two parts are made by fill
+    kernels, since a tensor built from a host list is a blocking copy that
+    would wait for the stream at every BN layer.  Returns (mean, var, N: an
+    int, or a float64 scalar tensor under ``space``)."""
     from torch.distributed.nn.functional import all_reduce
 
-    n = y.shape[0] * y.shape[2] * y.shape[3] * torch.distributed.get_world_size(group)
-    mean = all_reduce(y.sum(dim=(0, 2, 3)), group=group) / n
-    var = all_reduce(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3)), group=group) / n
+    group = mesh.bn_group
+    count = y.shape[0] * y.shape[2] * y.shape[3]
+    total = y.sum(dim=(0, 2, 3))
+    if mesh.space_size == 1:
+        n = div = count * mesh.world_size
+        mean = all_reduce(total, group=group) / n
+    else:
+        parts = [y.new_full((1,), count // _COUNT_SPLIT), y.new_full((1,), count % _COUNT_SPLIT)]
+        tot = all_reduce(torch.cat([total, *parts]), group=group)
+        n = tot[-2].detach().double() * _COUNT_SPLIT + tot[-1].detach().double()
+        div = n.to(y.dtype)
+        mean = tot[:-2] / div
+    var = all_reduce(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3)), group=group) / div
     return mean, var, n
 
 
 def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
-                  training: bool = False, measure: bool = False, bn_group=None):
+                  training: bool = False, measure: bool = False, mesh=None):
     """Bias-less conv + BatchNorm + LeakyReLU(0.1) (the JAX
     ``conv_bn_leaky``).  The conv's result is rounded to x's dtype, then the
     BN math runs in fp32 whatever that dtype is.  Train mode normalizes with
@@ -225,21 +270,28 @@ def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
     sat further from a float64 evaluation of the reference than its own
     float32 steps do.
 
-    ``bn_group`` (a process group of a data-parallel run) makes the batch
-    statistics those of the global batch, as the reference's ``jnp.mean`` /
-    ``jnp.var`` over a batch sharded on the ``data`` axis are: two passes,
-    each summed over this rank's shard and all-reduced with an autograd-aware
-    collective, so the backward reaches every rank's activations.  Returns
-    (y in x's dtype, new state)."""
-    y = _conv(x, p["w"], stride).float()
+    ``mesh`` (a ``(data, space)`` mesh, or None): over several ranks
+    (``mesh.bn_group``) the batch statistics are those of the global batch,
+    as the reference's ``jnp.mean`` / ``jnp.var`` over a sharded batch are:
+    two passes, each summed over this rank's shard and all-reduced with an
+    autograd-aware collective, so the backward reaches every rank's
+    activations.  Under ``space`` > 1, ``x`` is this rank's stripe of rows,
+    a 3x3 conv reads its halo from the neighbouring stripes, and the
+    statistics cover each stripe's own rows.  Returns (y in x's dtype, new
+    state)."""
+    y = _conv(x, p["w"], stride, mesh).float()
     if training:
-        if bn_group is None:
+        if mesh is None or mesh.bn_group is None:
             var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
             n = y.shape[0] * y.shape[2] * y.shape[3]
         else:
-            mean, var, n = _global_mean_var(y, bn_group)
+            mean, var, n = _global_mean_var(y, mesh)
+        if isinstance(n, int):
+            unbias = n / max(n - 1, 1)
+        else:
+            unbias = (n / (n - 1).clamp(min=1)).to(var.dtype)
         m = 1.0 if measure else BN_MOMENTUM
-        batch_var = var.detach() if measure else var.detach() * (n / max(n - 1, 1))
+        batch_var = var.detach() if measure else var.detach() * unbias
         new_s = {"mean": (1 - m) * s["mean"] + m * mean.detach(),
                  "var": (1 - m) * s["var"] + m * batch_var}
     else:
@@ -251,13 +303,13 @@ def conv_bn_leaky(p: Params, s: State, x: torch.Tensor, stride: int = 1,
 
 
 def apply_backbone(params: Params, state: State, x: torch.Tensor,
-                   training: bool = False, measure: bool = False, bn_group=None):
-    """Darknet-53 on an NCHW batch; returns the route tensors (c3, c4, c5)
-    at strides 8, 16, 32 and the new backbone state."""
+                   training: bool = False, measure: bool = False, mesh=None):
+    """Darknet-53 on an NCHW batch (or this rank's stripe of its rows under
+    a ``space`` mesh); returns the route tensors (c3, c4, c5) at strides 8,
+    16, 32 and the new backbone state."""
     new_state: State = {}
     routes: List[torch.Tensor] = []
-    cbl = functools.partial(conv_bn_leaky, training=training, measure=measure,
-                            bn_group=bn_group)
+    cbl = functools.partial(conv_bn_leaky, training=training, measure=measure, mesh=mesh)
     y, new_state["stem"] = cbl(params["stem"], state["stem"], x, 1)
     for i in range(_num_stages(params)):
         sp, ss = params[f"stage{i}"], state[f"stage{i}"]
@@ -276,7 +328,7 @@ def apply_backbone(params: Params, state: State, x: torch.Tensor,
 
 
 def apply_head(params: Params, state: State, x: torch.Tensor,
-               training: bool = False, measure: bool = False, bn_group=None):
+               training: bool = False, measure: bool = False, mesh=None):
     """Detection head; returns (raw det NCHW, the 5th conv's output, new
     state).  The detection conv adds its bias after its result is rounded
     to x's dtype, as the reference does."""
@@ -284,7 +336,7 @@ def apply_head(params: Params, state: State, x: torch.Tensor,
     y = x
     for i in range(6):
         y, new_state[f"conv{i}"] = conv_bn_leaky(params[f"conv{i}"], state[f"conv{i}"],
-                                                 y, 1, training, measure, bn_group)
+                                                 y, 1, training, measure, mesh)
         if i == 4:
             branch = y
     det = _conv(y, params["det"]["w"], 1) + params["det"]["b"][:, None, None]
@@ -292,14 +344,17 @@ def apply_head(params: Params, state: State, x: torch.Tensor,
 
 
 def apply_yolonet(params: Params, state: State, x: torch.Tensor,
-                  training: bool = False, measure: bool = False, bn_group=None):
+                  training: bool = False, measure: bool = False, mesh=None):
     """Full forward (the JAX ``apply_yolonet``): an NHWC image batch in the
     params' compute dtype -> the three raw heads, coarse first, each
     [B, H/s, W/s, 3*(5+C)] NHWC, and the new BN state.  An fp32 forward runs
     with TF32 off (a caller that also runs the backward keeps it off around
-    both, as ``train/step.py`` does).  ``bn_group``: train-mode BN over the
-    global batch of a data-parallel run (:func:`conv_bn_leaky`)."""
-    mode = dict(training=training, measure=measure, bn_group=bn_group)
+    both, as ``train/step.py`` does).  ``mesh``: a ``(data, space)`` mesh,
+    whose ranks share train-mode BN over the global batch
+    (:func:`conv_bn_leaky`); under ``space`` > 1, ``x`` is this rank's
+    stripe of the images' rows and so are the heads
+    (``parallel/halo.py::gather_rows`` assembles them)."""
+    mode = dict(training=training, measure=measure, mesh=mesh)
     with full_fp32():
         y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         new_state: State = {}
@@ -322,15 +377,15 @@ def apply_yolonet(params: Params, state: State, x: torch.Tensor,
     return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2)), new_state
 
 
-def recalibrate_bn(params: Params, state: State, batches, bn_group=None) -> State:
+def recalibrate_bn(params: Params, state: State, batches, mesh=None) -> State:
     """BN re-estimation (the JAX ``recalibrate_bn``): the running statistics
     replaced by the mean of the per-batch statistics of ``batches`` (one
     NHWC tensor or an iterable of equally shaped ones), each measured in a
     train-mode forward with momentum 1 and the biased variance.  The
     measuring mode is an argument of the forward, not a global, so calls
     never see one another's mode, and an error leaves nothing changed.
-    ``bn_group``: each rank passes its shard and the statistics are the
-    global batch's."""
+    ``mesh``: each rank passes its shard (its stripe of
+    it under ``space`` > 1) and the statistics are the global batch's."""
     if isinstance(batches, torch.Tensor):
         batches = [batches]
     batches = list(batches)
@@ -339,7 +394,7 @@ def recalibrate_bn(params: Params, state: State, batches, bn_group=None) -> Stat
         raise ValueError(f"recalibrate_bn batches must share one shape, got {shapes}")
     with torch.no_grad():
         states = [apply_yolonet(params, state, x, training=True, measure=True,
-                                bn_group=bn_group)[1]
+                                mesh=mesh)[1]
                   for x in batches]
     if len(states) == 1:
         return states[0]
@@ -442,15 +497,20 @@ class _ConvBias(nn.Module):
             self._chunks = (key, make())
         return self._chunks[1]
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        """``mesh``: under ``space`` > 1, ``x`` is a stripe of rows and a
+        3x3 conv reads its halo from the neighbouring stripes."""
+        pad = self.pad
+        if pad and _space_sharded(mesh):
+            x, pad = _halo(x, self.stride, mesh), (0, pad)
         if x.dtype != torch.bfloat16:
-            y = F.conv2d(x, self.weight, self.bias, self.stride, self.pad)
+            y = F.conv2d(x, self.weight, self.bias, self.stride, pad)
             return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
         y = None
         with tf32_conv():
             for c, w in zip(range(0, x.shape[1], TF32_K_CHANNELS), self._fp32_chunks()):
                 part = F.conv2d(x[:, c:c + TF32_K_CHANNELS].float(), w, None,
-                                self.stride, self.pad)
+                                self.stride, pad)
                 y = part if y is None else y + part
         y = y + self.bias.float()[:, None, None]
         if self.leaky:
@@ -469,11 +529,23 @@ class _ResBlock(nn.Module):
         self.register_buffer("w2", p["conv2"]["w"].contiguous())
         self.register_buffer("b2", p["conv2"]["b"].contiguous())
 
-    def forward(self, x, res_block):
+    def forward(self, x, res_block, mesh=None):
+        """``mesh``: under ``space`` > 1 the block runs on the stripe
+        extended by a row of each neighbouring stripe (none at the image's
+        real top and bottom), and its output is cut back to the stripe: the
+        kernel's zero padding of conv1's output then falls on rows the cut
+        drops, or on the image's real edge."""
+        top = bottom = 0
+        if _space_sharded(mesh):
+            above, below = edge_rows(x, mesh, 1, 1)
+            top, bottom = int(mesh.space_index > 0), int(mesh.space_index < mesh.space_size - 1)
+            x = torch.cat([above[:, :, :top], x, below[:, :, :bottom]], dim=2)
         y = x.permute(0, 2, 3, 1)                   # NHWC view, no copy
         if not y.is_contiguous():
             y = y.contiguous()
         out = res_block(y, self.w1, self.b1, self.w2, self.b2)
+        if top or bottom:
+            out = out.narrow(1, top, out.shape[1] - top - bottom)
         return out.permute(0, 3, 1, 2)              # NCHW, channels_last
 
 
@@ -483,9 +555,9 @@ class _Head(nn.Module):
         self.convs = nn.ModuleList(_ConvBias(hp[f"conv{i}"]) for i in range(6))
         self.det = _ConvBias(hp["det"], leaky=False)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         for i, conv in enumerate(self.convs):
-            x = conv(x)
+            x = conv(x, mesh)
             if i == 4:
                 branch = x
         return self.det(x), branch
@@ -511,7 +583,15 @@ class _P2dConv(nn.Module):
         self.fns = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if self.taps == 9
                     else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
 
-    def forward(self, x2d, hp, wp, plain):
+    def forward(self, x2d, hp, wp, plain, mesh=None):
+        """``mesh``: under ``space`` > 1 a 3x3 first writes the rows of the
+        neighbouring stripes into the layout's top and bottom border rows,
+        which its taps read (:func:`~yolo_v3_tpu_torch.ops.fused_conv.
+        set_border_rows`); the epilogue zeroes them in the output."""
+        if self.taps == 9 and _space_sharded(mesh):
+            b, h, w = x2d.shape[0] // (hp * wp), hp - 2, wp - 2
+            above, below = edge_rows(FC.unpack_p2d(x2d, b, h, w), mesh, 1, 1, dim=1)
+            x2d = FC.set_border_rows(x2d, above, below, hp, wp)
         return self.fns[plain](x2d, self.weight, self.scale, self.bias, hp, wp,
                                leaky=self.leaky, out_dtype=torch.bfloat16)
 
@@ -524,9 +604,9 @@ class _P2dHead(nn.Module):
         self.convs = nn.ModuleList(_P2dConv(hp[f"conv{i}"]) for i in range(6))
         self.det = _P2dConv(hp["det"], leaky=False)
 
-    def forward(self, x2d, hp, wp, plain):
+    def forward(self, x2d, hp, wp, plain, mesh=None):
         for i, conv in enumerate(self.convs):
-            x2d = conv(x2d, hp, wp, plain)
+            x2d = conv(x2d, hp, wp, plain, mesh)
             if i == 4:
                 branch = x2d
         return self.det(x2d, hp, wp, plain), branch
@@ -541,6 +621,12 @@ class YoloNetFolded(nn.Module):
     [B, H/s, W/s, 3*(5+C)] NHWC.  The residual blocks, and in bf16 the head
     and upsample convs, run on the kernel wrappers, or on their plain
     versions with ``plain=True``.  An fp32 forward runs with TF32 off.
+
+    ``forward(x, mesh=...)`` with a ``(data, space)`` mesh of ``space`` > 1
+    takes this rank's stripe of the images' rows (``parallel/mesh.py::
+    stripe``) and returns the whole heads on every rank of its space group:
+    each 3x3 conv reads its halo rows from the neighbouring stripes, and the
+    heads are gathered at the end (``parallel/halo.py``).
     """
 
     def __init__(self, params: Params):
@@ -568,30 +654,34 @@ class YoloNetFolded(nn.Module):
     def num_res_blocks(self) -> int:
         return sum(len(s) for s in self.stages)
 
-    def forward(self, x: torch.Tensor, plain: bool = False):
+    def forward(self, x: torch.Tensor, plain: bool = False, mesh=None):
         exact = full_fp32() if self.dtype == torch.float32 else contextlib.nullcontext()
         with exact:
             res_block = fused_res_block_ref if plain else fused_res_block
             y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            y = self.stem(y)
+            y = self.stem(y, mesh)
             routes: List[torch.Tensor] = []
             for i, (down, blocks) in enumerate(zip(self.downs, self.stages)):
-                y = down(y)
+                y = down(y, mesh)
                 for blk in blocks:
-                    y = blk(y, res_block)
+                    y = blk(y, res_block, mesh)
                 if i >= 2:
                     routes.append(y)
             if self.dtype == torch.bfloat16:
-                return self._p2d_heads(routes, plain)
-            c3, c4, c5 = routes
-            det0, br0 = self.head0(c5)
-            y = torch.cat([_upsample_nchw(self.up0(br0)), c4], dim=1)
-            det1, br1 = self.head1(y)
-            y = torch.cat([_upsample_nchw(self.up1(br1)), c3], dim=1)
-            det2, _ = self.head2(y)
-            return tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2))
+                heads = self._p2d_heads(routes, plain, mesh)
+            else:
+                c3, c4, c5 = routes
+                det0, br0 = self.head0(c5, mesh)
+                y = torch.cat([_upsample_nchw(self.up0(br0)), c4], dim=1)
+                det1, br1 = self.head1(y, mesh)
+                y = torch.cat([_upsample_nchw(self.up1(br1)), c3], dim=1)
+                det2, _ = self.head2(y, mesh)
+                heads = tuple(d.permute(0, 2, 3, 1) for d in (det0, det1, det2))
+            if _space_sharded(mesh):
+                heads = tuple(gather_rows(h, mesh) for h in heads)
+            return heads
 
-    def _p2d_heads(self, routes, plain):
+    def _p2d_heads(self, routes, plain, mesh):
         """The heads and upsample convs on the padded-2D layout: each route
         packed once, the up conv's output unpacked, upsampled, concatenated
         with the next route and packed again."""
@@ -605,9 +695,9 @@ class YoloNetFolded(nn.Module):
             u = FC.unpack_p2d(up(br2d, *geometry(small), plain), *small.shape[:3])
             return FC.pack_p2d(torch.cat([upsample2x_nearest(u), route], dim=-1))
 
-        det0, br0 = self.head0(FC.pack_p2d(c5), *geometry(c5), plain)
-        det1, br1 = self.head1(up_concat(self.up0, br0, c5, c4), *geometry(c4), plain)
-        det2, _ = self.head2(up_concat(self.up1, br1, c4, c3), *geometry(c3), plain)
+        det0, br0 = self.head0(FC.pack_p2d(c5), *geometry(c5), plain, mesh)
+        det1, br1 = self.head1(up_concat(self.up0, br0, c5, c4), *geometry(c4), plain, mesh)
+        det2, _ = self.head2(up_concat(self.up1, br1, c4, c3), *geometry(c3), plain, mesh)
         return tuple(FC.unpack_p2d(d, *g.shape[:3]).contiguous()
                      for d, g in ((det0, c5), (det1, c4), (det2, c3)))
 

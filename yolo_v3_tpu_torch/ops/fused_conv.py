@@ -78,6 +78,20 @@ def p2d_geometry(b: int, h: int, w: int) -> Tuple[int, int, int]:
     return b * (h + 2) * (w + 2), h + 2, w + 2
 
 
+def set_border_rows(x2d: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor,
+                    hp: int, wp: int) -> torch.Tensor:
+    """Write ``top`` and ``bottom`` ([B, 1, W, C]) into the top and bottom
+    border rows of every image of ``x2d``, in place, and return it; the
+    left and right border pixels keep their zeros.  A height-sharded
+    forward puts a neighbouring stripe's rows there, where a 3x3 conv's
+    taps read them; a 1x1 reads no border row, and the epilogue writes the
+    border rows of its output as zeros."""
+    v = x2d.view(-1, hp, wp, x2d.shape[-1])
+    v[:, :1, 1:wp - 1] = top
+    v[:, hp - 1:, 1:wp - 1] = bottom
+    return x2d
+
+
 def border_mask(r: int, hp: int, wp: int, device) -> torch.Tensor:
     """[R] bool: True for the non-border rows of the padded-2D layout."""
     p = torch.arange(r, device=device) % (hp * wp)

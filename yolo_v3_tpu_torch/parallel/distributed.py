@@ -25,9 +25,14 @@ The backend is NCCL, which needs a card of its own for every rank.  Gloo is
 used only when the caller names it (CPU ranks; several ranks sharing one
 card, whose CUDA tensors gloo reduces through the host).
 
+Height sharding: ``make_global_mesh(space=s)`` splits the ranks into
+data groups of ``s`` adjacent ranks that hold one shard of images, each
+rank a stripe of their rows; ``make_data_helper(..., space=s)`` gives the
+ranks of a data group the same shard.
+
 Checkpoint contract: ``save_checkpoint(..., mesh_shape=mesh.shape)``
-records the mesh, so a resume can check that the data-parallel width
-matches (:func:`assert_mesh_compatible`).
+records the mesh ``(data, space)``, so a resume can check that the
+data-parallel width matches (:func:`assert_mesh_compatible`).
 """
 
 from __future__ import annotations
@@ -110,18 +115,24 @@ def initialize(
 
 def make_global_mesh(space: int = 1, n_devices: Optional[int] = None, device=None):
     """The mesh over every rank of the process group, shape
-    ``(world, space)``; data-parallel (``space`` > 1 is not ported)."""
+    ``(world / space, space)``: the batch split over the ``data`` axis,
+    each image's rows over the ``space`` axis."""
     return M.make_mesh(n_devices=n_devices, space=space, device=device)
 
 
-def make_data_helper(dataset, sampler, ctx: ProcessContext, **kw):
-    """A DataHelper sharded for this process: rank ``process_id`` of
-    ``num_processes`` assembles its contiguous slice of every global
-    batch."""
+def make_data_helper(dataset, sampler, ctx: ProcessContext, space: int = 1, **kw):
+    """A DataHelper sharded for this process's data index: with ``space``
+    ranks an image, rank ``process_id`` is data index ``process_id //
+    space`` of ``num_processes / space``, and assembles that contiguous
+    slice of every global batch (the same images on every rank of its data
+    group; each cuts its own stripe of rows from them)."""
     from yolo_v3_tpu_torch.data.loader import DataHelper
 
-    return DataHelper(dataset, sampler, host_id=ctx.process_id,
-                      n_hosts=max(ctx.num_processes, 1), **kw)
+    n = max(ctx.num_processes, 1)
+    if n % space:
+        raise ValueError(f"{n} process(es) do not split into space={space}")
+    return DataHelper(dataset, sampler, host_id=ctx.process_id // space,
+                      n_hosts=n // space, **kw)
 
 
 # The JAX names: there they assemble global jax.Arrays from each process's

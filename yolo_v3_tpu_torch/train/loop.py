@@ -13,10 +13,13 @@ exactly where it stopped.  SIGTERM or SIGINT lets the net-batch in flight
 finish, checkpoints and returns.
 
 Data parallelism (``mesh``, :mod:`yolo_v3_tpu_torch.parallel`): every rank
-runs this loop on its card with its host-sharded ``DataHelper``; params, BN
-state and optimizer state are replicated from rank 0, the step reduces
-over the ranks, a resume checks the checkpoint's mesh, and checkpoints
-record the mesh's shape (rank 0 writes them).  A SIGTERM that reaches one
+runs this loop on its card with its host-sharded ``DataHelper`` (the
+shard of its data index: the ranks of one data group assemble the same
+images, and under a ``space`` axis each cuts its stripe of rows from
+them); params, BN state and optimizer state are replicated from rank 0,
+the step reduces over the ranks, a resume checks the checkpoint's mesh
+(the data width must match, the space width may differ), and checkpoints
+record the mesh's shape ``(data, space)`` (rank 0 writes them).  A SIGTERM that reaches one
 rank only stops them all at the same net-batch: the flag is all-reduced
 once a net-batch.  Rank 0 alone logs and feeds the recorder.
 """
@@ -119,7 +122,7 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
     step = make_train_step(config, opt, COMPUTE_DTYPES[tcfg.compute_dtype], tcfg.remat,
                            mesh=mesh)
     lead = mesh is None or mesh.rank == 0
-    world = mesh.world_size if mesh is not None else 1
+    data_ranks = mesh.data_size if mesh is not None else 1
 
     if checkpoint is not None:
         if checkpoint["opt_state"] is None:
@@ -176,7 +179,7 @@ def _train(data, params, state, config, tcfg, recorder, model_id, weight_dir, ch
                 pending = None
             if lead:
                 pending = _PendingStats(stats, data.get_net_batch(), data.get_epoch(),
-                                        imgs.shape[2], imgs.shape[0] * imgs.shape[1] * world)
+                                        imgs.shape[2], imgs.shape[0] * imgs.shape[1] * data_ranks)
                 if not pipeline_stats:
                     pending.drain(recorder, log_fn)
                     pending = None

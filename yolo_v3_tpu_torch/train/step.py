@@ -25,6 +25,19 @@ are averaged over the ranks and ``nCorrect`` / ``nGT`` summed, and recall
 is taken after.  Every rank then applies the same update to the same
 params, so the ranks stay bit-equal.  ``DistributedDataParallel`` does not
 apply: the step is a function of param trees, not an ``nn.Module``.
+
+Under a ``space`` axis (``mesh.shape`` = (data, space), space > 1) a rank
+holds a stripe of its data shard's rows.  The forward exchanges halo rows
+around every 3x3 conv, and the loss gathers the three heads over the space
+group (``parallel/halo.py::gather_rows``), so every space rank computes the
+loss of its data shard's whole images.  The gather's backward sums the
+space ranks' gradients of each stripe, so each rank differentiates its loss
+divided by ``space``: each image's loss reaches the gradients once.  The
+flat all-reduce still sums over the whole world: over the data axis that
+sums over images, over the space axis the partial weight gradients of each
+stripe's rows.  The stats are the same on every space rank of a data
+group, so the counts are divided by ``space`` after the sum (the loss
+terms, divided by the world size, are then the data ranks' mean).
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models.loss import yolo_loss
+from yolo_v3_tpu_torch.parallel.halo import gather_rows
+from yolo_v3_tpu_torch.parallel.mesh import STRIPE_ROWS
 from yolo_v3_tpu_torch.train.optimizer import _build, _leaves
 from yolo_v3_tpu_torch.utils.config import YoloConfig
 from yolo_v3_tpu_torch.utils.precision import full_fp32
@@ -47,19 +62,24 @@ _COUNTS = ("nCorrect", "nGT")
 
 
 def loss_fn(params, state, imgs, labels, config: YoloConfig,
-            compute_dtype: torch.dtype = torch.float32, bn_group=None):
+            compute_dtype: torch.dtype = torch.float32, mesh=None):
     """Forward + loss on one micro-batch; returns (loss, (stats, new BN
     state)).  A uint8 batch is normalized here, on its device, as
-    ``float32 / 255``.  ``bn_group``: BN over the global batch
-    (``models/darknet.py::conv_bn_leaky``)."""
+    ``float32 / 255``.  ``mesh``: BN over the global batch of its ranks
+    (``models/darknet.py::conv_bn_leaky``); with ``space`` > 1, ``imgs`` is
+    this rank's stripe of rows and the heads are gathered whole before the
+    loss, which is that of the data shard's images."""
     if imgs.dtype == torch.uint8:
         imgs = imgs.to(torch.float32) / 255.0
     if compute_dtype != torch.float32:
         params = D.map_tree(lambda a: a.to(compute_dtype), params)
         imgs = imgs.to(compute_dtype)
-    raws, new_state = D.apply_yolonet(params, state, imgs, training=True,
-                                      bn_group=bn_group)
-    loss, stats = yolo_loss(raws, labels, config, imgs.shape[1])
+    raws, new_state = D.apply_yolonet(params, state, imgs, training=True, mesh=mesh)
+    img_dim = imgs.shape[1]
+    if mesh is not None and mesh.space_size > 1:
+        raws = tuple(gather_rows(r, mesh) for r in raws)
+        img_dim = raws[0].shape[1] * STRIPE_ROWS
+    loss, stats = yolo_loss(raws, labels, config, img_dim)
     return loss, (stats, new_state)
 
 
@@ -73,8 +93,10 @@ def _all_reduce_grads_and_stats(grads, stats: Dict[str, torch.Tensor], mesh):
     torch.distributed.all_reduce(buf, group=mesh.group)
     parts = torch.split(buf, [g.numel() for _, g in items] + [len(keys)])
     grads = _build([p for p, _ in items], [t.view_as(g) for t, (_, g) in zip(parts, items)])
-    stats = {k: (v if k in _COUNTS else v / mesh.world_size).to(stats[k].dtype)
-             for k, v in zip(keys, parts[-1])}
+    # every space rank of a data group has the same stats: the counts are
+    # summed over the data axis, the loss terms averaged over it
+    stats = {k: (v / mesh.space_size if k in _COUNTS else v / mesh.world_size)
+             .to(stats[k].dtype) for k, v in zip(keys, parts[-1])}
     return grads, stats
 
 
@@ -85,11 +107,13 @@ def make_train_step(config: YoloConfig, opt, compute_dtype: torch.dtype = torch.
     (:class:`~yolo_v3_tpu_torch.train.optimizer.SGD`).  ``remat`` recomputes
     each micro-batch's forward during its backward
     (``torch.utils.checkpoint``) instead of keeping its activations.
-    ``mesh``: a data-parallel step on this rank's shard (module doc); a mesh
-    without a process group (one process) changes nothing."""
-    base = functools.partial(loss_fn, config=config, compute_dtype=compute_dtype,
-                             bn_group=mesh.bn_group if mesh is not None else None)
+    ``mesh``: a data-parallel step on this rank's shard, and its stripe of
+    rows under ``space`` > 1 (module doc); a mesh without a process group
+    (one process) changes nothing."""
+    base = functools.partial(loss_fn, config=config, compute_dtype=compute_dtype, mesh=mesh)
     reduce = mesh is not None and mesh.group is not None
+    # the gather's backward sums the space ranks' gradients of one image
+    space = mesh.space_size if mesh is not None else 1
 
     def micro(leaves, state, im, lb):
         if remat:
@@ -102,7 +126,7 @@ def make_train_step(config: YoloConfig, opt, compute_dtype: torch.dtype = torch.
         with full_fp32():
             for s in range(imgs.shape[0]):
                 loss, (stats, state) = micro(leaves, state, imgs[s], labels[s])
-                loss.backward()
+                (loss / space if space > 1 else loss).backward()
                 per_micro.append(stats)
         grads = D.map_tree(lambda p: p.grad, leaves)
         stats: Dict[str, torch.Tensor] = {

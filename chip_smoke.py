@@ -116,6 +116,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (information); (d) ``StepTimer`` (CUDA events) around 5 detects after 2
    in int8 and bf16 beside phase 5's e2e, and ``trace()`` around one int8
    detect, whose Chrome trace names ``fused_entry`` and ``conv_p2d``.
+10. the mesh, 2 gloo ranks sharing the card (this script with
+   ``--space-worker``): ``Detector(mesh=(2, 1))`` on phase 4's 8 images in
+   bf16, fp32 and int8, ``Detector(mesh=(1, 2))`` on stripes of 224 / 192
+   rows in bf16, fp32 and int8 on the float and the uint8 feed (phase 9's
+   artifact), and one fp32 ``train(mesh=(1, 2))`` net-batch, against one
+   process: every kernel launch kept at its mesh shape and held to its
+   plain version (int8 bit-equal), launches a rank as one process's, int8
+   heads and rows bit-equal, float heads within phase 5's bounds; detect ms
+   a rank and each kernel's per-forward ms, bound and plain ms.
 
 TF32 is turned off only around this script's own plain references and
 cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
@@ -2581,6 +2590,7 @@ SPACE_LAUNCHES = {"bf16": dict(BF16_LAUNCHES, fused_entry=0, res_block_p2d=0),
                   "fp32": dict(fused_res_block=23, fused_entry=0, conv1x1_p2d=0,
                                conv3x3_p2d=0, res_block_p2d=0),
                   "int8": dict(INT8_LAUNCHES, fused_res_block=0)}
+SPACE_LAUNCHES["int8u8"] = SPACE_LAUNCHES["int8"]      # the uint8 feed: the same kernels
 # phase 3's tolerances per kernel and input type (int8: bit-equal)
 SPY_TOL = {("fused_res_block", torch.float32): TOL[torch.float32],
            ("fused_res_block", torch.bfloat16): TOL[torch.bfloat16],
@@ -2590,13 +2600,28 @@ SPY_TOL = {("fused_res_block", torch.float32): TOL[torch.float32],
               for k in ("conv1x1_p2d", "conv3x3_p2d", "res_block_p2d", "fused_entry")}}
 
 
+def replay_border(filled, hp, wp):
+    """A ``border`` callable for ``res_block_p2d`` that writes the top and
+    bottom border rows of ``filled`` (the 1x1's output as a launch under
+    ``space`` had it after its halo) into the 1x1's output: that launch's
+    neighbour rows, with no collective, so that one rank can check and time
+    the block alone."""
+    def fill(mid):
+        v, f = (t.view(-1, hp, wp, t.shape[-1]) for t in (mid, filled))
+        v[:, 0], v[:, -1] = f[:, 0], f[:, -1]
+        return mid
+    return fill
+
+
 def spy_kernels(model):
     """Wrap the model's kernel calls (float: the residual blocks through
     ``darknet.fused_res_block`` and the p2d convs through each
     ``_P2dConv``; int8: ``quantized.KERNELS``) to keep the inputs and
     output of the first launch at each shape and count the launches there;
     returns (the captures, a function that undoes the wrapping).  The
-    wrappers call the kernel wrappers as they are, so launch counts hold."""
+    wrappers call the kernel wrappers as they are, so launch counts hold.
+    An int8 block's ``border`` (its halo between the two launches under
+    ``space``) is kept as :func:`replay_border` of what it wrote."""
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import quantized as Q
 
@@ -2604,13 +2629,21 @@ def spy_kernels(model):
 
     def wrap(name, fn, plain):
         def run(*args, **kw):
+            filled, border = [], kw.get("border")
+            if border is not None:
+                def keep(mid):
+                    filled.append(border(mid))
+                    return filled[-1]
+                kw = dict(kw, border=keep)
             out = fn(*args, **kw)
             key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
                                   for a in args if torch.is_tensor(a) or isinstance(a, int))
             if key not in seen:
+                kept = {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()}
+                if filled:
+                    kept["border"] = replay_border(filled[0].clone(), args[-2], args[-1])
                 seen[key] = [plain, [a.clone() if torch.is_tensor(a) else a for a in args],
-                             {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()},
-                             out.clone(), 0]
+                             kept, out.clone(), 0]
             seen[key][4] += 1
             return out
         return run
@@ -2646,8 +2679,8 @@ def launch_cost(name, args, out):
                 NAMES[x.dtype])
     kind = "int8" if x.dtype == torch.int8 else "bf16"
     if name == "fused_entry":
-        b, h = x.shape[0], out.shape[1]
-        ops = sum(2 * b * (2 * h if k == "stem" else h) ** 2 * kh * kw * cin * cout
+        b, h, w = out.shape[:3]                 # a stripe's window is not square
+        ops = sum(2 * b * h * w * (4 if k == "stem" else 1) * kh * kw * cin * cout
                   for k, (kh, kw, cin, cout) in EK.SHAPES.items())
         return ops, x.numel() + out.numel() + sum(
             p["w"].numel() + 8 * p["m"].numel() for p in args[1].values()), kind
@@ -2702,7 +2735,9 @@ def space_worker(weights_path, work):
     """Child process of phase 10 (``--space-worker``): one of 2 gloo ranks on
     card 0.  (a) ``Detector(mesh=(2, 1))`` in bf16, fp32 and int8 (phase
     9's artifact) on phase 4's 8 images, 4 a rank; (b) ``Detector(mesh=(1,
-    2))`` in bf16 and fp32, each launch's inputs kept; (c) ``train(mesh=(1,
+    2))`` in bf16, fp32 and int8 on the float feed and on the uint8 feed
+    (``int8u8``: ``resize_on_device=False``, the host's uint8 letterbox),
+    each launch's inputs kept; (c) ``train(mesh=(1,
     2))`` for one fp32 net-batch of phase 7's scenes with a checkpoint.
     Writes ``space/rank<r>.npz`` (rows, heads) and ``space/rank<r>.json``
     (launch counts, each kept launch against its plain version, ms, the
@@ -2726,14 +2761,14 @@ def space_worker(weights_path, work):
     counters = kernel_counters()
 
     def detector(precision, mesh):
-        if precision == "int8":
+        if precision.startswith("int8"):
             return Detector.from_quantized(os.path.join(work, "cli", "q.npz"), config,
-                                           mesh=mesh)
+                                           mesh=mesh, resize_on_device=precision == "int8")
         return Detector.from_darknet_weights(weights_path, config, precision=precision,
                                              mesh=mesh)
 
     for tag, mesh, precisions in (("data", dp, ("bf16", "fp32", "int8")),
-                                  ("space", sp, ("bf16", "fp32"))):
+                                  ("space", sp, ("bf16", "fp32", "int8", "int8u8"))):
         for precision in precisions:
             run = f"{tag}/{precision}"
             det = detector(precision, mesh)
@@ -2839,8 +2874,8 @@ def heads_within(got, want, precision):
 
 def space_path(card, weights_path, imgs, work):
     """Phase 10: data-parallel serving (batch 8 split 4 / 4) in bf16, fp32
-    and int8, height-sharded serving (stripes 224 / 192) in bf16 and fp32,
-    and one height-sharded fp32 training net-batch of 8 x 2, on 2 gloo ranks
+    and int8, height-sharded serving (stripes 224 / 192) in bf16, fp32 and
+    int8 on both feeds, and one height-sharded fp32 training net-batch of 8 x 2, on 2 gloo ranks
     sharing the card, against one process.  Returns each run's launch
     counts per rank."""
     from yolo_v3_tpu_torch.detector import Detector
@@ -2862,9 +2897,10 @@ def space_path(card, weights_path, imgs, work):
     config = YoloConfig()
     one = {}
     with torch.inference_mode():
-        for precision in ("bf16", "fp32", "int8"):
-            det = (Detector.from_quantized(os.path.join(work, "cli", "q.npz"), config)
-                   if precision == "int8" else
+        for precision in ("bf16", "fp32", "int8", "int8u8"):
+            det = (Detector.from_quantized(os.path.join(work, "cli", "q.npz"), config,
+                                           resize_on_device=precision == "int8")
+                   if precision.startswith("int8") else
                    Detector.from_darknet_weights(weights_path, config, precision=precision))
             x, _ = det.preprocess(imgs)
             xd = x if x.dtype == torch.uint8 else x.to(det.compute_dtype)
@@ -2931,9 +2967,11 @@ def space_path(card, weights_path, imgs, work):
             f"per rank {[round(i['ms'][f'data/{precision}'], 3) for i in infos]}, one process "
             f"{one_ms:.3f} | {card}")
 
-    # (b) height-sharded serving
-    for precision in ("bf16", "fp32"):
+    # (b) height-sharded serving: float heads within phase 5's bounds of one
+    # process's, int8 heads and rows bit-equal on both feeds
+    for precision in ("bf16", "fp32", "int8", "int8u8"):
         want_rows, want_heads, one_ms = one[precision]
+        exact = precision.startswith("int8")
         for r in range(SPACE_RANKS):
             n = infos[r]["launches"][f"space/{precision}"]
             check(n == SPACE_LAUNCHES[precision],
@@ -2942,22 +2980,35 @@ def space_path(card, weights_path, imgs, work):
                       zip(rows(r, "space", precision), rows(0, "space", precision))),
                   f"space {precision}: rank {r} returned other rows than rank 0")
         errs = []
-        for i, w in enumerate(want_heads):
-            ok, err, scale = heads_within(ranks[0][f"space/{precision}/heads/{i}"], w, precision)
-            check(ok, f"space {precision} head{i}: err {err} (max|head| {scale})")
-            errs.append(err)
+        for r in range(SPACE_RANKS if exact else 1):
+            for i, w in enumerate(want_heads):
+                got_h = ranks[r][f"space/{precision}/heads/{i}"]
+                if exact:
+                    check(np.array_equal(got_h, w), f"space {precision} rank {r} head{i}: not "
+                          f"bit-equal to one process's (max abs err "
+                          f"{float(np.abs(got_h - w).max())})")
+                    continue
+                ok, err, scale = heads_within(got_h, w, precision)
+                check(ok, f"space {precision} head{i}: err {err} (max|head| {scale})")
+                errs.append(err)
         got = rows(0, "space", precision)
         check_rows(got, imgs, config.num_classes)
-        check(all(a.shape == b.shape and np.allclose(a, b, rtol=0, atol=1e-2)
-                  for a, b in zip(got, want_rows)),
-              f"space {precision}: rows beyond atol 1e-2 of one process's or other valid "
-              f"counts ({[len(a) for a in got]} vs {[len(b) for b in want_rows]})")
+        if exact:
+            check(all(np.array_equal(a, b) for a, b in zip(got, want_rows)),
+                  f"space {precision}: rows differ from one process's")
+            case = "heads on both ranks and rows bit-equal to one process's"
+        else:
+            check(all(a.shape == b.shape and np.allclose(a, b, rtol=0, atol=1e-2)
+                      for a, b in zip(got, want_rows)),
+                  f"space {precision}: rows beyond atol 1e-2 of one process's or other valid "
+                  f"counts ({[len(a) for a in got]} vs {[len(b) for b in want_rows]})")
+            case = (f"heads within phase 5's bound of one process's (max abs err "
+                    f"{', '.join(f'{e:.3e}' for e in errs)}), rows of equal validity within "
+                    f"atol 1e-2")
         log(f"space serving {precision}: Detector(mesh=(1, 2)), stripes 224 / 192 rows of 8 "
-            f"images: heads within phase 5's bound of one process's (max abs err "
-            f"{', '.join(f'{e:.3e}' for e in errs)}), rows of equal validity within atol 1e-2; "
-            f"launches per rank {infos[0]['launches'][f'space/{precision}']}; every kernel "
-            f"launch at its stripe shape within phase 3's tolerance of its plain version "
-            f"(above) | {card}")
+            f"images: {case}; launches per rank {infos[0]['launches'][f'space/{precision}']}; "
+            f"every kernel launch at its stripe shape within phase 3's tolerance of its plain "
+            f"version (above) | {card}")
         log(f"time space serving {precision} (information: the ranks share one card): detect "
             f"ms per rank {[round(i['ms'][f'space/{precision}'], 3) for i in infos]}, one "
             f"process {one_ms:.3f} | {card}")
@@ -3076,7 +3127,7 @@ def main():
         name, mode = entry["name"].rsplit("_", 1)
         precision = {"f32": "fp32"}.get(mode, mode)
         entry["mesh_runs"] = {run: kernels_of[name] for run, kernels_of in mesh_launches.items()
-                              if run.endswith("/" + precision)}
+                              if run.split("/")[1] in (precision, precision + "u8")}
     kernels += options
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

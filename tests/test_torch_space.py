@@ -27,7 +27,15 @@ and the uneven split is what runs.  Bounds (those of JAX's own
 * data-parallel serving: each rank's heads against the one-process heads
   of its images (int8 bit-equal; fp32 1e-4 and bf16 5e-2 * max|head|,
   since the CPU's float32 products sum in another order at another
-  batch), and every rank's rows the gathered rows of the ranks' heads.
+  batch), and every rank's rows the gathered rows of the ranks' heads;
+* int8 under space (an s2d tree on the float and the uint8 feed, a tree
+  without s2d): the gathered heads bit-equal to JAX's single-device int8
+  forward run op by op (see ``tests/test_torch_quantized.py``) and to the
+  port's one process (integer sums are exact in any order and every
+  epilogue is per element), the rows to the one-process rows at the
+  data-parallel bound, and to JAX's int8 ``detect_fn`` at
+  ``tests/test_torch_quantized.py``'s Detector bounds; the entry's stripe
+  windows (no processes) bit-equal to the whole image's entry.
 
 Detection uses the detector tests' trees (BN spread out, detection convs
 scaled up) at conf 0.3, so that rows are valid; the step uses the plain
@@ -46,11 +54,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_parallel import LAUNCHER_VARS, REPO, TESTS, WORKER, free_port
 from test_torch_train_step import port_float64_run
 from yolo_v3_tpu.detector import detect_fn as jdetect_fn
 from yolo_v3_tpu.models import darknet as JD
+from yolo_v3_tpu.models import quantized as JQ
 from yolo_v3_tpu.train import optimizer as JO
 from yolo_v3_tpu.train import step as JS
 from yolo_v3_tpu.utils import config as JC
@@ -60,13 +70,14 @@ from yolo_v3_tpu_torch.detector import Detector, detect_fn
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as TW
+from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.parallel import mesh as M
 from yolo_v3_tpu_torch.train import checkpoint as CK
 from yolo_v3_tpu_torch.train.loop import train
 from yolo_v3_tpu_torch.train.optimizer import make_optimizer
 from yolo_v3_tpu_torch.train.step import make_train_step
 from yolo_v3_tpu_torch.utils.config import TrainConfig, YoloConfig
-from torch_dist_worker import Scenes, halo_weights
+from torch_dist_worker import INT8_RUNS, Scenes, halo_weights
 
 DIM = 96
 CFG = YoloConfig(num_classes=2, img_dim=DIM)
@@ -155,12 +166,13 @@ def _inputs():
     labels[..., 1, :] = [0, 0.3, 0.6, 0.2, 0.4]
     rng = np.random.default_rng(0)
     det_x = rng.uniform(0, 1, (8, DIM, DIM, 3)).astype(np.float32)
+    det_xu8 = np.round(det_x * 255).astype(np.uint8)
     det_org = np.tile([[96.0, 64.0]], (8, 1)).astype(np.float32)
     det_u8 = rng.integers(0, 255, (4, 80, 120, 3), dtype=np.uint8)
     halo = rng.normal(0, 1, (2, 3, DIM, 5)).astype(np.float32)
     gather = rng.normal(0, 1, (2, DIM, 5, 3)).astype(np.float32)
     return dict(net=(p, s), det=_spread(p, s), imgs=imgs, labels=labels, det_x=det_x,
-                det_org=det_org, det_u8=det_u8, halo=halo, gather=gather)
+                det_xu8=det_xu8, det_org=det_org, det_u8=det_u8, halo=halo, gather=gather)
 
 
 def _det_trees(det):
@@ -193,9 +205,28 @@ def _jax_reference(inp):
                 rows_fp32=np.asarray(rows), heads_bf16=[np.asarray(h, np.float32) for h in heads])
 
 
+def _jax_int8_reference(root, inp):
+    """JAX's single-device int8 heads of every int8 run, on the artifacts
+    the ranks load, its forward run op by op (module doc), and the s2d
+    tree's rows on the float feed: JAX's ``detect_fn`` on those heads, the
+    postprocess jitted (op by op it takes ~15 s more and moves no row
+    beyond 2e-5)."""
+    x, org = jnp.asarray(inp["det_x"]), jnp.asarray(inp["det_org"])
+    trees = {f: JQ.load_quantized(str(root / f)) for f in ("q.npz", "q_plain.npz")}
+    heads, raw = {}, {}
+    for run, (qfile, images) in INT8_RUNS.items():
+        fn = JQ.apply_yolonet_quantized_u8 if run == "int8u8" else JQ.apply_yolonet_quantized
+        raw[run] = tuple(fn(trees[qfile], jnp.asarray(inp[images])))
+        heads[run] = [np.asarray(h, np.float32) for h in raw[run]]
+    rows = jax.jit(lambda v, o: jdetect_fn(None, v, o, JCFG, conf_thr=CONF, nms_thr=NMS,
+                                           compute_dtype=jnp.float32,
+                                           apply_fn=lambda p, _: raw["int8"]))(x, org)
+    return dict(heads=heads, rows=np.asarray(rows))
+
+
 def _port_reference(inp, qtree):
     """The port in one process: one float32 step, the detect rows in fp32,
-    bf16 and int8, the bf16 heads and the Detector rows."""
+    bf16 and int8 (every int8 run), the heads and the Detector rows."""
     p, s = inp["net"]
     opt = make_optimizer(TrainConfig(**TRAIN))
     tp, ts = TW.params_from_numpy(p), TW.params_from_numpy(s)
@@ -210,14 +241,19 @@ def _port_reference(inp, qtree):
             out[f"rows_{name}"] = detect_fn(model, x, org, CFG, CONF, NMS,
                                             compute_dtype=dtype).numpy()
             out[f"heads_{name}"] = [h.float().numpy() for h in model(x.to(dtype))]
-        model = Q.YoloNetQuantized(qtree).eval()
-        out["rows_int8"] = detect_fn(model, x, org, CFG, CONF, NMS,
-                                     compute_dtype=torch.float32).numpy()
-        heads = model(x)
-        out["heads_int8"] = [h.float().numpy() for h in heads]
+        for run, (qfile, images) in INT8_RUNS.items():
+            model = Q.YoloNetQuantized(qtree[qfile]).eval()
+            xi = torch.from_numpy(inp[images])
+            out[f"rows_{run}"] = detect_fn(model, xi, org, CFG, CONF, NMS,
+                                           compute_dtype=torch.float32).numpy()
+            heads = model(xi)
+            out[f"heads_{run}"] = [h.float().numpy() for h in heads]
         out["heads_dtype"] = dict(int8=heads[0].dtype, **PRECISIONS)
-    det = Detector(*_det_trees(inp["det"]), CFG, precision="fp32", device="cpu")
-    out["detector_fp32"] = det.detect(list(inp["det_u8"]))
+    trees = _det_trees(inp["det"])
+    for name, kw in (("fp32", dict(precision="fp32")), ("int8", dict(precision="int8")),
+                     ("int8u8", dict(precision="int8", resize_on_device=False))):
+        det = Detector(*trees, CFG, device="cpu", **kw)
+        out[f"detector_{name}"] = det.detect(list(inp["det_u8"]))
     return out
 
 
@@ -229,12 +265,15 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("space")
     inp = _inputs()
     det_p, det_s = _det_trees(inp["det"])
-    qtree = Q.build_quantized(det_p, det_s, torch.from_numpy(inp["det_x"]))
-    Q.save_quantized(qtree, str(root / "q.npz"))
-    qtree = Q.load_quantized(str(root / "q.npz"))       # the tree the ranks load
+    qtree = {}
+    for qfile, s2d in (("q.npz", True), ("q_plain.npz", False)):
+        Q.save_quantized(Q.build_quantized(det_p, det_s, torch.from_numpy(inp["det_x"]),
+                                           space_to_depth=s2d), str(root / qfile))
+        qtree[qfile] = Q.load_quantized(str(root / qfile))   # the tree the ranks load
     p, s = inp["net"]
     np.savez(str(root / "in.npz"), imgs=inp["imgs"], labels=inp["labels"],
-             det_x=inp["det_x"], det_org=inp["det_org"], det_u8=inp["det_u8"],
+             det_x=inp["det_x"], det_xu8=inp["det_xu8"], det_org=inp["det_org"],
+             det_u8=inp["det_u8"],
              halo=inp["halo"], gather=inp["gather"],
              **{f"params/{k}": v for k, v in _flat(p).items()},
              **{f"state/{k}": v for k, v in _flat(s).items()},
@@ -243,8 +282,8 @@ def runs(tmp_path_factory):
     two = start(["space", str(root / "in.npz"), str(root / "two")], 2)
     four = start(["space4", str(root / "in.npz"), str(root / "four")], 4)
     try:
-        ref = dict(jax=_jax_reference(inp), port=_port_reference(inp, qtree), inp=inp,
-                   qtree=qtree)
+        ref = dict(jax=_jax_reference(inp), jax_int8=_jax_int8_reference(root, inp),
+                   port=_port_reference(inp, qtree), inp=inp)
     finally:
         finish(two)
         finish(four)
@@ -323,14 +362,106 @@ def test_mesh_of_one_rank_changes_nothing():
                            detect_fn(model, x, org, CFG, 0.01, NMS, compute_dtype=torch.float32))
 
 
-def test_int8_under_space_raises(runs):
-    """int8 serving under a space axis is not ported: it raises before any
-    collective."""
-    mesh = M.Mesh((1, 2), 0, 2, torch.device("cpu"))
-    x = torch.from_numpy(runs["inp"]["det_x"][:2])
-    with pytest.raises(NotImplementedError, match="int8 serving under a space axis"):
-        detect_fn(Q.YoloNetQuantized(runs["qtree"]).eval(), x, torch.ones(2, 2), CFG, CONF, NMS,
-                  compute_dtype=torch.float32, mesh=mesh)
+# ---------------------------------------------------------------------------
+# the int8 entry on a stripe's window (no processes)
+# ---------------------------------------------------------------------------
+
+ENTRY_W = 64
+
+
+def _run_entry(window, qs):
+    """The plain entry on a padded window (uint8: the raw bytes, made the
+    feed's int8 codes as the forward makes them)."""
+    if window.dtype == torch.uint8:
+        window = (window ^ 0x80).view(torch.int8)
+    return EK.fused_entry_ref(D._space_to_depth2(window).contiguous(), qs, 0.75)
+
+
+@pytest.fixture(scope="module")
+def entry_case():
+    """(image codes, the whole image's entry output, the convs) per height
+    and feed.  The convs are random with every tap nonzero (a real tree's
+    stem has a zero third row of 2x2 blocks), so that the window's whole
+    reach, image rows 4i-11 .. 4i+10 of output row i, is read."""
+    g = torch.Generator().manual_seed(11)
+    qs = {}
+    for k, (kh, kw, ci, co) in EK.SHAPES.items():
+        w = torch.randint(-20, 21, (kh, kw, ci, co), generator=g).to(torch.int8)
+        qs[k] = {"w": torch.where(w == 0, torch.ones_like(w), w),
+                 "m": torch.rand(co, generator=g) * 4e-3 + 2e-3,
+                 "b": torch.randn(co, generator=g) * 4}
+    cases = {}
+
+    def get(height, feed):
+        if (height, feed) not in cases:
+            rng = np.random.default_rng(height)
+            if feed == "uint8":
+                codes = torch.from_numpy(rng.integers(0, 256, (2, height, ENTRY_W, 3),
+                                                      dtype=np.uint8))
+            else:
+                x = rng.uniform(0, 1, (2, height, ENTRY_W, 3)).astype(np.float32)
+                codes = Q.quantize_image(torch.from_numpy(x), 1 / 127)
+            cases[height, feed] = codes, _run_entry(Q.entry_window(codes), qs), qs
+        return cases[height, feed]
+
+    return get
+
+
+@pytest.mark.parametrize("position", ["first", "middle", "last"])
+@pytest.mark.parametrize("feed", ["float", "uint8"])
+@pytest.mark.parametrize("height", [96, 128])
+def test_entry_window_on_every_stripe(entry_case, height, feed, position):
+    """An image of 3 (96 rows) or 4 (128 rows) stripes of 32: each stripe's
+    window, with the halo rows sliced from the whole image and the output
+    cut as the forward cuts it, gives the whole image's entry rows, bit for
+    bit."""
+    codes, whole, qs = entry_case(height, feed)
+    n = height // 32
+    s = {"first": 0, "middle": 1, "last": n - 1}[position]
+    a, b = M.stripe_bounds(height, n)[s]
+    top, bottom = s > 0, s < n - 1
+    above = codes[:, a - Q.ENTRY_HALO[0]:a] if top else None
+    below = codes[:, b:b + Q.ENTRY_HALO[1]] if bottom else None
+    out = Q.cut_entry(_run_entry(Q.entry_window(codes[:, a:b], above, below), qs), top, bottom)
+    assert torch.equal(out, whole[:, a // 4:b // 4])
+
+
+@pytest.mark.parametrize("feed", ["float", "uint8"])
+def test_entry_window_halo_and_cut_are_the_least(entry_case, feed):
+    """The middle stripe [32, 64) of a 128-row image pins 13 / 7 and 3 / 1.
+    The farthest rows read are the 11th above and the 7th below: blanking
+    either changes the stripe's first or last output row and nothing else;
+    the 12th and 13th rows above only keep the window on the image's 2x2
+    blocks and down0's pairs of them.  The next smaller windows that keep
+    that alignment (9 above, 3 below) give wrong rows, and one output row
+    less of cut at either edge keeps a row that is not the image's."""
+    codes, whole, qs = entry_case(128, feed)
+    a, b = 32, 64
+    want = whole[:, a // 4:b // 4]
+    assert Q.ENTRY_HALO == (13, 7) and Q.ENTRY_CUT == (3, 1)
+
+    def run(above, below, cut_top, cut_bottom, blank=None):
+        c = codes.clone()
+        if blank is not None:
+            c[:, blank] = 0                 # the pad value of both feeds' bytes
+        out = _run_entry(F.pad(c[:, a - above:b + below], (0, 0, 1, 3)), qs)
+        return out.narrow(1, cut_top, out.shape[1] - cut_top - cut_bottom)
+
+    assert torch.equal(run(13, 7, 3, 1), want)
+    got = run(13, 7, 3, 1, blank=a - 11)
+    assert not torch.equal(got[:, 0], want[:, 0]) and torch.equal(got[:, 1:], want[:, 1:])
+    got = run(13, 7, 3, 1, blank=b + 6)
+    assert not torch.equal(got[:, -1], want[:, -1]) and torch.equal(got[:, :-1], want[:, :-1])
+    for row in (a - 12, a - 13):
+        assert torch.equal(run(13, 7, 3, 1, blank=row), want)
+    assert not torch.equal(run(9, 7, 2, 1), want)
+    assert not torch.equal(run(13, 3, 3, 0), want)
+    got = run(13, 7, 2, 1)
+    assert torch.equal(got[:, 1:], want) and not torch.equal(got[:, 0], whole[:, a // 4 - 1])
+    got = run(13, 7, 3, 0)
+    assert torch.equal(got[:, :-1], want) and not torch.equal(got[:, -1], whole[:, b // 4])
+    with pytest.raises(ValueError, match="takes 13 rows above"):
+        Q.entry_window(codes[:, a:b], codes[:, a - 12:a])
 
 
 # ---------------------------------------------------------------------------
@@ -571,3 +702,76 @@ def test_detector_over_a_mesh(runs, mesh):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, **tol)
+
+
+# ---------------------------------------------------------------------------
+# int8 under space: both feeds of an s2d tree and a tree without s2d
+# ---------------------------------------------------------------------------
+
+def _int8_rows_close(got, want):
+    """``tests/test_torch_quantized.py``'s int8 Detector bounds on [B, M, 8]
+    rows: validity equal; on valid rows the class equal, boxes within 1e-2
+    px, obj and prob within 1e-4."""
+    np.testing.assert_array_equal(got[..., 7], want[..., 7])
+    v = got[..., 7] > 0
+    np.testing.assert_array_equal(got[v][:, 6], want[v][:, 6])
+    np.testing.assert_allclose(got[v][:, :4], want[v][:, :4], rtol=0, atol=1e-2)
+    np.testing.assert_allclose(got[v][:, 4:6], want[v][:, 4:6], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("run", list(INT8_RUNS))
+def test_space2_int8_heads_bit_equal(runs, run):
+    """(1, 2), stripes 64 / 32: the heads every rank gathers (rank 1's held
+    to rank 0's bytes by digest) bit-equal to JAX's single-device int8
+    forward (``apply_yolonet_quantized``, ``_u8`` on the uint8 feed) and to
+    the port's one process."""
+    got = runs["two"][0]
+    for i, (w_jax, w_port) in enumerate(zip(runs["jax_int8"]["heads"][run],
+                                            runs["port"][f"heads_{run}"])):
+        h = got[f"space/heads/{run}/{i}"]
+        assert h.shape == w_port.shape
+        np.testing.assert_array_equal(h, w_jax)
+        np.testing.assert_array_equal(h, w_port)
+
+
+@pytest.mark.parametrize("run", list(INT8_RUNS))
+def test_space2_int8_rows(runs, run):
+    """(1, 2): every rank's rows are the one-process port's, bit for bit
+    (the heads are, and the postprocess runs on the same whole batch); the
+    s2d tree's float-feed rows are also within the int8 Detector bounds of
+    JAX's ``detect_fn`` run op by op."""
+    got = runs["two"][0][f"space/rows/{run}"]
+    assert got[..., 7].sum() > 0
+    np.testing.assert_array_equal(got, runs["port"][f"rows_{run}"])
+    if run == "int8":
+        _int8_rows_close(got, runs["jax_int8"]["rows"])
+
+
+@pytest.mark.parametrize("name", ["int8", "int8u8"])
+def test_detector_int8_over_space(runs, name):
+    """``Detector(precision="int8", mesh=(1, 2))``, on the card's float
+    letterbox (``int8``) and on the host's uint8 letterbox (``int8u8``, the
+    uint8 feed): each rank calibrates on the whole images as one process
+    does, so the rows are the one-process Detector's, bit for bit."""
+    want = runs["port"][f"detector_{name}"]
+    assert sum(len(w) for w in want) > 0
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(runs["two"][0][f"detector/1x2/{name}/{i}"], w)
+
+
+def test_space4_int8_detect(runs):
+    """(2, 2): 4 images a data rank in stripes of 64 / 32.  Each rank's heads
+    (gathered over its space pair) bit-equal to the one-process heads of its
+    images, and every rank returns the whole batch's rows: the one-process
+    rows at the data-parallel bound (validity equal, rtol 1e-6, atol 1e-5),
+    since each data rank's postprocess runs on 4 images, and the CPU's
+    vectorized float math gives a last bit by the tensor's length."""
+    ranks, port = runs["four"], runs["port"]
+    for r in range(4):
+        sl = M.data_slice(M.Mesh((2, 2), r, 4, torch.device("cpu")), 8)
+        for i, w in enumerate(port["heads_int8"]):
+            np.testing.assert_array_equal(ranks[r][f"rank/space4/heads/int8/{i}"], w[sl])
+    got, want = ranks[0]["space4/rows/int8"], port["rows_int8"]
+    assert got[..., 7].sum() > 0
+    np.testing.assert_array_equal(got[..., 7], want[..., 7])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)

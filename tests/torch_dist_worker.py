@@ -19,20 +19,23 @@ Imports the port only.
         (``tests/test_torch_space.py``) Two ranks, meshes (1, 2) and (2, 1).
         IN.npz holds the step's ``params/...``, ``state/...``, ``imgs`` and
         ``labels`` (the global net-batch), the detect trees ``det/...``,
-        ``det_x`` [B, H, W, 3] and ``det_org`` [B, 2], the uint8 Detector
-        images ``det_u8`` [N, h, w, 3], and ``halo`` / ``gather`` (whole
-        tensors whose stripes the collectives get); the int8 artifact is
-        ``q.npz`` beside it.  On (1, 2): halo_exchange and gather_rows with
-        their gradients, the train-mode forward, one step in float32 and in
-        float64, bf16 and fp32 detect (heads and rows), an fp32 Detector,
-        and train() for one net-batch with a checkpoint; on (2, 1): detect
-        in fp32, bf16 and int8 (rows, and each rank's heads) and an fp32
-        Detector.  Writes
+        ``det_x`` [B, H, W, 3] and ``det_org`` [B, 2], the same images as
+        uint8 ``det_xu8``, the uint8 Detector images ``det_u8`` [N, h, w,
+        3], and ``halo`` / ``gather`` (whole tensors whose stripes the
+        collectives get); the int8 artifacts are ``q.npz`` (s2d) and
+        ``q_plain.npz`` (no s2d) beside it.  On (1, 2): halo_exchange and
+        gather_rows with their gradients, the train-mode forward, one step
+        in float32 and in float64, detect (heads and rows) in bf16, fp32 and
+        int8 (:data:`INT8_RUNS`), fp32 and int8 Detectors (int8 on both
+        feeds), and train() for one net-batch with a checkpoint; on (2, 1):
+        detect in fp32, bf16 and int8 (rows, and each rank's heads) and an
+        fp32 Detector.  Writes
         OUT_PREFIX.rank<r>.npz (ranks after 0: a digest of every array but
         the per-rank ``rank/...`` ones).
     torch_dist_worker.py space4 IN.npz OUT_PREFIX
         Four ranks, mesh (2, 2): the train-mode forward and one step in
-        float32 and float64 on the same IN.npz.
+        float32 and float64, and int8 detect (rows, each rank's heads), on
+        the same IN.npz.
 """
 
 import hashlib
@@ -197,42 +200,58 @@ def collectives(mesh, arrays, res):
     res["rank/gather"], res["rank/gather_grad"] = out.detach().numpy(), x.grad.numpy()
 
 
+# the int8 runs: (artifact beside IN.npz, images): an s2d tree on the float
+# feed and on the uint8 feed, and a tree without s2d
+INT8_RUNS = {"int8": ("q.npz", "det_x"), "int8u8": ("q.npz", "det_xu8"),
+             "int8plain": ("q_plain.npz", "det_x")}
+
+
 def space_detects(mesh, arrays, det_tree, tag, res, precisions=("fp32", "bf16")):
-    """detect_fn on this rank's part of ``det_x`` in each precision (int8:
-    the artifact ``q.npz`` beside IN.npz), the heads too under space."""
+    """detect_fn on this rank's part of the images in each precision (the
+    int8 ones of :data:`INT8_RUNS`), the heads too: under space gathered
+    over the space group (a ``rank/`` key where the data axis splits the
+    batch too), else this rank's images'."""
     from yolo_v3_tpu_torch.detector import detect_fn
     from yolo_v3_tpu_torch.models import quantized as Q
     from yolo_v3_tpu_torch.parallel import mesh as M
 
-    x, org = torch.from_numpy(arrays["det_x"]), torch.from_numpy(arrays["det_org"])
-    xs = M.stripe(mesh, M.data_shard(mesh, x), 1).contiguous()
+    org = torch.from_numpy(arrays["det_org"])
     orgs = M.data_shard(mesh, org)
     for prec in precisions:
-        if prec == "int8":
-            model, dtype = Q.YoloNetQuantized(Q.load_quantized(arrays["q_path"])), torch.float32
+        if prec in INT8_RUNS:
+            qfile, images = INT8_RUNS[prec]
+            model = Q.YoloNetQuantized(Q.load_quantized(os.path.join(arrays["dir"], qfile)))
+            dtype = torch.float32
         else:
-            dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[prec]
+            images, dtype = "det_x", {"fp32": torch.float32, "bf16": torch.bfloat16}[prec]
             model = D.YoloNetFolded(D.cast_params(D.fold_batchnorm(*det_tree), dtype))
+        x = torch.from_numpy(arrays[images])
+        xs = M.stripe(mesh, M.data_shard(mesh, x), 1).contiguous()
+        xd = xs if xs.dtype == torch.uint8 else xs.to(dtype)
         with torch.inference_mode():
             rows = detect_fn(model.eval(), xs, orgs, SPACE_CFG, 0.3, 0.45,
                              compute_dtype=dtype, mesh=mesh)
             res[f"{tag}/rows/{prec}"] = rows.numpy()
             if mesh.space_size > 1:
-                heads = model(xs.to(dtype), mesh=mesh)
-                res.update({f"{tag}/heads/{prec}/{i}": h.float().numpy()
-                            for i, h in enumerate(heads)})
+                heads = model(xd, mesh=mesh)
+                key = f"rank/{tag}" if mesh.data_size > 1 else tag
             else:                               # this rank's images' heads
-                heads = model(xs if xs.dtype == torch.uint8 else xs.to(dtype))
-                res.update({f"rank/{tag}/heads/{prec}/{i}": h.float().numpy()
-                            for i, h in enumerate(heads)})
+                heads = model(xd)
+                key = f"rank/{tag}"
+            res.update({f"{key}/heads/{prec}/{i}": h.float().numpy()
+                        for i, h in enumerate(heads)})
 
 
-def detector_rows(mesh, arrays, det_tree, precision):
+def detector_rows(mesh, arrays, det_tree, precision, resize_on_device=True):
+    """A Detector's rows for ``det_u8`` over ``mesh``; ``resize_on_device=
+    False`` (int8: the uint8 feed) is tagged ``<precision>u8``."""
     from yolo_v3_tpu_torch.detector import Detector
 
-    det = Detector(*det_tree, SPACE_CFG, precision=precision, device="cpu", mesh=mesh)
+    det = Detector(*det_tree, SPACE_CFG, precision=precision, device="cpu", mesh=mesh,
+                   resize_on_device=resize_on_device)
     rows = det.detect(list(arrays["det_u8"]))
-    return {f"detector/{mesh.shape[0]}x{mesh.shape[1]}/{precision}/{i}": r
+    name = precision if resize_on_device else f"{precision}u8"
+    return {f"detector/{mesh.shape[0]}x{mesh.shape[1]}/{name}/{i}": r
             for i, r in enumerate(rows)}
 
 
@@ -272,7 +291,7 @@ def space_train(ctx, mesh, tree, weight_dir, res):
 def space_mode(ctx, mode, inp, out):
     with np.load(inp) as z:
         arrays = {k: z[k] for k in z.files}
-    arrays["q_path"] = os.path.join(os.path.dirname(inp), "q.npz")
+    arrays["dir"] = os.path.dirname(inp)
     tree = W.tree_from_flat({k: v for k, v in arrays.items()
                              if k.startswith(("params/", "state/"))})
     det = W.tree_from_flat({k[4:]: v for k, v in arrays.items() if k.startswith("det/")})
@@ -284,13 +303,16 @@ def space_mode(ctx, mode, inp, out):
         assert mesh.shape == (2, 2) and (mesh.data_index, mesh.space_index) == divmod(
             ctx.process_id, 2), mesh
         space_steps(mesh, arrays, tree, res)
+        space_detects(mesh, arrays, det_tree, "space4", res, ("int8",))
     else:
         mesh = dist.make_global_mesh(space=2, device="cpu")
         assert mesh.shape == (1, 2) and mesh.space_index == ctx.process_id, mesh
         collectives(mesh, arrays, res)
         space_steps(mesh, arrays, tree, res)
-        space_detects(mesh, arrays, det_tree, "space", res)
+        space_detects(mesh, arrays, det_tree, "space", res, ("fp32", "bf16", *INT8_RUNS))
         res.update(detector_rows(mesh, arrays, det_tree, "fp32"))
+        res.update(detector_rows(mesh, arrays, det_tree, "int8"))
+        res.update(detector_rows(mesh, arrays, det_tree, "int8", resize_on_device=False))
         space_train(ctx, mesh, tree, os.path.dirname(inp), res)
         dp = dist.make_global_mesh(device="cpu")
         assert dp.shape == (2, 1) and dp.data_index == ctx.process_id, dp

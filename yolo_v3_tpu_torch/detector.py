@@ -8,9 +8,9 @@ NMS, and the mapping of boxes back to original-image pixels.  Only the
 compact [B, M, 8] result returns to the host.  With ``resize_on_device=False``
 the host resizes with OpenCV (imported only there) and int8 takes the
 uint8 images as they are (the uint8 feed).  Over a mesh of processes a
-batch is split over the ``data`` axis (every precision) and each image's
-rows over the ``space`` axis (bf16 and fp32), and every rank returns the
-whole batch's rows.
+batch is split over the ``data`` axis and each image's rows over the
+``space`` axis (every precision, both int8 feeds), and every rank returns
+the whole batch's rows.
 
 Output rows per image: [cls, x, y, w, h, prob, obj], xywh in original-image
 pixels.
@@ -65,16 +65,11 @@ def detect_fn(
 
     ``mesh`` (a ``(data, space)`` mesh, ``parallel/mesh.py``): ``x`` and
     ``org_dims`` are this rank's data shard of the batch (``data_shard``),
-    ``x`` cut to this rank's stripe of rows under ``space`` > 1 (``stripe``;
-    bf16 and fp32 only), and every rank returns the rows of the whole batch,
-    as JAX's ``detect_fn`` jitted over a mesh does.
+    ``x`` cut to this rank's stripe of rows under ``space`` > 1 (``stripe``),
+    and every rank returns the rows of the whole batch, as JAX's
+    ``detect_fn`` jitted over a mesh does.
     """
     space = mesh is not None and mesh.space_size > 1
-    if space and not isinstance(model, D.YoloNetFolded):
-        raise NotImplementedError(
-            "int8 serving under a space axis is not ported (ROADMAP queue A): the "
-            "fused_entry kernel runs stem, down0, a block and down1 in one launch, so its "
-            "stripes need a halo of several input rows")
     xa = x if x.dtype == torch.uint8 else x.to(compute_dtype)
     raws = model(xa, plain=plain, mesh=mesh) if space else model(xa, plain=plain)
     # the gathered heads are whole: the coarse one has a row per 32 input rows
@@ -111,8 +106,8 @@ class Detector:
     ``mesh`` (a ``(data, space)`` mesh, ``parallel/mesh.py``): the detector
     serves on the mesh's card, :meth:`detect` preprocesses only this rank's
     data shard of the images (cut to its stripe of rows under ``space`` >
-    1, bf16 and fp32 only) and returns the rows of every image on every
-    rank.  Every rank gets the same images.  int8 calibrates on each rank,
+    1; the uint8 feed stripes uint8 rows) and returns the rows of every
+    image on every rank.  Every rank gets the same images.  int8 calibrates on each rank,
     on the same images; a quantized artifact serves every rank the same
     tree without that.
     """

@@ -213,6 +213,19 @@ def _halo(x: torch.Tensor, stride: int, mesh) -> torch.Tensor:
     return halo_exchange(x, mesh, 1, 1 if stride == 1 else 0)
 
 
+def p2d_halo_rows(x2d: torch.Tensor, hp: int, wp: int, mesh=None) -> torch.Tensor:
+    """Under a ``space`` > 1 ``mesh``, ``x2d`` (a stripe in the padded-2D
+    layout) with the rows of the neighbouring stripes written into its top
+    and bottom border rows, in place, where a 3x3's taps read them (zeros
+    at the image's real edges; :func:`~yolo_v3_tpu_torch.ops.fused_conv.
+    set_border_rows`); ``x2d`` as it is otherwise."""
+    if not _space_sharded(mesh):
+        return x2d
+    b, h, w = x2d.shape[0] // (hp * wp), hp - 2, wp - 2
+    above, below = edge_rows(FC.unpack_p2d(x2d, b, h, w), mesh, 1, 1, dim=1)
+    return FC.set_border_rows(x2d, above, below, hp, wp)
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, mesh=None) -> torch.Tensor:
     """'SAME' conv of an NCHW x by an HWIO weight, in x's dtype (bf16 out
     for bf16 operands, as the reference's ``f32_out=False``).  Under a
@@ -585,13 +598,10 @@ class _P2dConv(nn.Module):
 
     def forward(self, x2d, hp, wp, plain, mesh=None):
         """``mesh``: under ``space`` > 1 a 3x3 first writes the rows of the
-        neighbouring stripes into the layout's top and bottom border rows,
-        which its taps read (:func:`~yolo_v3_tpu_torch.ops.fused_conv.
-        set_border_rows`); the epilogue zeroes them in the output."""
-        if self.taps == 9 and _space_sharded(mesh):
-            b, h, w = x2d.shape[0] // (hp * wp), hp - 2, wp - 2
-            above, below = edge_rows(FC.unpack_p2d(x2d, b, h, w), mesh, 1, 1, dim=1)
-            x2d = FC.set_border_rows(x2d, above, below, hp, wp)
+        neighbouring stripes into the layout's top and bottom border rows
+        (:func:`p2d_halo_rows`); the epilogue zeroes them in the output."""
+        if self.taps == 9:
+            x2d = p2d_halo_rows(x2d, hp, wp, mesh)
         return self.fns[plain](x2d, self.weight, self.scale, self.bias, hp, wp,
                                leaky=self.leaky, out_dtype=torch.bfloat16)
 

@@ -27,10 +27,22 @@ residual block and head conv on ``conv1x1_p2d`` / ``conv3x3_p2d`` in the
 padded-2D layout.  The stride-2 downsamples outside the entry (stages 2-4;
 in a tree without s2d also the stem and stages 0-1's) are plain int8 GEMMs
 (``conv_i8_nhwc``).
+
+Under a ``(data, space)`` mesh with ``space`` > 1 the forward takes this
+rank's stripe of the images' rows (whole 32-row bands) and returns the
+whole heads on every rank of its space group, bit-equal to one process's:
+the entry runs on the stripe's window (:func:`entry_window`: 13 image rows
+of the stripe above, 7 of the stripe below) and cuts the rows that its
+internal padding makes wrong (:data:`ENTRY_CUT`); every other 3x3 reads a
+row of each neighbouring stripe, the NHWC convs as halo rows, the p2d
+convs in the layout's border rows (between the block's two launches for a
+residual block); the heads are gathered at the end
+(``parallel/halo.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from typing import Dict, NamedTuple, Tuple
 
@@ -42,6 +54,7 @@ import torch.nn.functional as F
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
+from yolo_v3_tpu_torch.parallel.halo import edge_rows, gather_rows
 from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 QUANTIZED_FORMAT = "yolo_v3_tpu/quantized-v1"
@@ -407,6 +420,57 @@ PLAIN = Int8Ops(EK.fused_entry_ref, FC.conv1x1_p2d_ref, FC.conv3x3_p2d_ref,
                 FC.res_block_p2d_ref)
 
 
+# The entry on a stripe of rows.  Output row i (stride 4) reads image rows
+# 4i-11 .. 4i+10: the stem is a 3x3 VALID conv over the 2x2 blocks of the
+# image padded by 1 row on top and 3 below, then down0 (3x3/2), res0_2
+# (3x3) and down1 (2x2, pad (1, 0)).  A window keeps the whole image's 2x2
+# blocks and down0's pairs of them only if it starts 4k + 1 rows above the
+# stripe (the image's 1-row pad is k = 0), so an inner top edge takes the
+# 13 rows above (the least such start over 11 rows) and an inner bottom
+# edge the 7 below (to 4i+10 of the stripe's last row, which keeps the
+# window a multiple of 4 rows high).  The entry's own zero padding of
+# down0, res0_2 and down1 at the window's edges then makes its first 3
+# output rows ((13 - 1) / 4, the rows above the stripe's) and its last one
+# wrong at an inner edge: they are cut.
+ENTRY_PAD = (1, 3)          # the image's pad rows at its real top / bottom
+ENTRY_HALO = (13, 7)        # image rows of the neighbours at an inner top / bottom
+ENTRY_CUT = (3, 1)          # output rows cut there
+
+
+def inner_edges(mesh) -> Tuple[bool, bool]:
+    """Whether this rank's stripe has a neighbour above and below (False,
+    False off a ``space`` mesh)."""
+    if not D._space_sharded(mesh):
+        return False, False
+    return mesh.space_index > 0, mesh.space_index < mesh.space_size - 1
+
+
+def entry_window(codes: torch.Tensor, above=None, below=None) -> torch.Tensor:
+    """The padded image one entry launch runs on, before its space-to-depth:
+    ``codes`` [B, S, W, 3], a stripe of image codes (one byte a pixel: the
+    int8 codes of the float feed, the raw bytes of the uint8 feed), with
+    ``above`` / ``below``, the :data:`ENTRY_HALO` rows of the neighbouring
+    stripes at an inner edge, or None at the image's real top / bottom,
+    which gets the whole image's :data:`ENTRY_PAD` rows of 0; the columns
+    padded (1, 3) with 0.  With both None it is the whole image's padded
+    image.  The entry's output on it has :data:`ENTRY_CUT` rows too many at
+    each inner edge (:func:`cut_entry`)."""
+    for rows, want, side in ((above, ENTRY_HALO[0], "above"), (below, ENTRY_HALO[1], "below")):
+        if rows is not None and rows.shape[1] != want:
+            raise ValueError(f"the entry window takes {want} rows {side} a stripe, "
+                             f"got {rows.shape[1]}")
+    top = 0 if above is not None else ENTRY_PAD[0]
+    bottom = 0 if below is not None else ENTRY_PAD[1]
+    rows = torch.cat([t for t in (above, codes, below) if t is not None], dim=1)
+    return F.pad(rows, (0, 0, 1, 3, top, bottom))
+
+
+def cut_entry(out: torch.Tensor, inner_top: bool, inner_bottom: bool) -> torch.Tensor:
+    """The stripe's rows of the entry's output on :func:`entry_window`."""
+    top, bottom = ENTRY_CUT[0] * inner_top, ENTRY_CUT[1] * inner_bottom
+    return out.narrow(1, top, out.shape[1] - top - bottom)
+
+
 class _QConv(nn.Module):
     """One quantized conv: int8 weight (kept HWIO, or [C, N] for a 1x1),
     float32 multiplier and bias."""
@@ -423,8 +487,18 @@ class _QConv(nn.Module):
     def p2d(self, fn, x2d, hp, wp, **kw):
         return fn(x2d, self.w, self.m, self.b, hp, wp, **kw)
 
-    def nhwc(self, x, **kw):
-        return FC.conv_i8_nhwc(x, self.w, self.m, self.b, **kw)
+    def nhwc(self, x, stride=1, mesh=None):
+        """The NHWC SAME conv (a 3x3 here: the stem of a tree without s2d, a
+        stride-2 down).  Under a ``space`` mesh ``x`` is a stripe: it reads a
+        row of the stripe above and, at stride 1, one of the stripe below
+        (zeros at the image's real edges, the conv's padding), and pads W
+        only; output row i of stride 2 reads rows 2i-1 .. 2i+1, so nothing
+        below."""
+        padding = None
+        if D._space_sharded(mesh):
+            above, below = edge_rows(x, mesh, 1, 1 if stride == 1 else 0, dim=1)
+            x, padding = torch.cat([above, x, below], dim=1), ((0, 0), (1, 1))
+        return FC.conv_i8_nhwc(x, self.w, self.m, self.b, stride=stride, padding=padding)
 
 
 class _QResBlock(nn.Module):
@@ -434,10 +508,15 @@ class _QResBlock(nn.Module):
         self.conv2 = _QConv(p["conv2"])
         self.res_scale = float(p["res_scale"])
 
-    def forward(self, x2d, hp, wp, ops: Int8Ops):
+    def forward(self, x2d, hp, wp, ops: Int8Ops, mesh=None):
+        """``mesh``: under ``space`` > 1 the 3x3 reads the neighbouring
+        stripes' rows of the 1x1's output, written into its border rows
+        between the two launches (``darknet.p2d_halo_rows``)."""
         c1, c2 = self.conv1, self.conv2
+        border = (functools.partial(D.p2d_halo_rows, hp=hp, wp=wp, mesh=mesh)
+                  if D._space_sharded(mesh) else None)
         return ops.res_block(x2d, c1.w, c1.m, c1.b, c2.w, c2.m, c2.b, hp, wp,
-                             res_scale=self.res_scale)
+                             res_scale=self.res_scale, border=border)
 
 
 class _QHead(nn.Module):
@@ -446,9 +525,13 @@ class _QHead(nn.Module):
         self.convs = nn.ModuleList(_QConv(hq[f"conv{i}"]) for i in range(6))
         self.det = _QConv(hq["det"])
 
-    def forward(self, x2d, hp, wp, ops: Int8Ops):
+    def forward(self, x2d, hp, wp, ops: Int8Ops, mesh=None):
+        """``mesh``: under ``space`` > 1 each 3x3 reads the neighbouring
+        stripes' rows in its border rows (``darknet.p2d_halo_rows``)."""
         y = x2d
         for i, conv in enumerate(self.convs):
+            if i % 2:
+                y = D.p2d_halo_rows(y, hp, wp, mesh)
             y = conv.p2d(ops.conv3x3 if i % 2 else ops.conv1x1, y, hp, wp)
             if i == 4:
                 branch = y
@@ -472,6 +555,9 @@ class YoloNetQuantized(nn.Module):
     s2d runs its stem and stage 0's downsample as plain int8 convs and stage
     0's residual block on the p2d kernels like every other block.
     ``plain=True`` runs the kernels' plain versions instead.
+    ``forward(x, mesh=...)`` with a ``(data, space)`` mesh of ``space`` > 1
+    takes this rank's stripe of the images' rows and returns the whole
+    heads on every rank of its space group (module doc).
 
     The uint8 feed: ``u8 ^ 0x80`` read as int8 is the quantized image (scale
     1/255, zero point folded into ``stem4_u8``'s bias), padded with -128.
@@ -518,44 +604,58 @@ class YoloNetQuantized(nn.Module):
     def num_res_blocks(self) -> int:
         return sum(len(s) for s in self.stages)
 
-    def entry_operands(self, x: torch.Tensor):
+    def entry_operands(self, x: torch.Tensor, mesh=None):
         """An s2d tree's ``fused_entry`` operands for the image batch ``x``
         (float or uint8): the space-to-depth image codes ``xb`` and the
-        entry's convs, the uint8 feed's stem in place of ``stem``."""
+        entry's convs, the uint8 feed's stem in place of ``stem``.  Under a
+        ``space`` mesh ``x`` is a stripe and ``xb`` its window
+        (:func:`entry_window`), whose rows the stripes swap as one byte a
+        pixel: the float feed's int8 codes, the uint8 feed's raw bytes.
+        The uint8 feed's ``u8 ^ 0x80`` turns the window's 0 pad into -128."""
         if x.dtype == torch.uint8:
             if self.stem_u8 is None:
                 raise ValueError(_U8_NEEDS_S2D)
-            x_q, pad, stem = (x ^ 0x80).view(torch.int8), -128, self.stem_u8
+            codes, stem = x, self.stem_u8
         else:
-            x_q, pad, stem = quantize_image(x, self.scales["image"]), 0, self.entry["stem"]
-        xb = D._space_to_depth2(F.pad(x_q, (0, 0, 1, 3, 1, 3), value=pad)).contiguous()
+            codes, stem = quantize_image(x, self.scales["image"]), self.entry["stem"]
+        above = below = None
+        inner_top, inner_bottom = inner_edges(mesh)
+        if inner_top or inner_bottom:
+            above, below = edge_rows(codes, mesh, *ENTRY_HALO, dim=1)
+            above, below = (above if inner_top else None), (below if inner_bottom else None)
+        window = entry_window(codes, above, below)
+        if x.dtype == torch.uint8:
+            window = (window ^ 0x80).view(torch.int8)
+        xb = D._space_to_depth2(window).contiguous()
         qs2d = {k: {"w": c.w, "m": c.m, "b": c.b} for k, c in self.entry.items()}
         qs2d["stem"] = {"w": stem.w, "m": stem.m, "b": stem.b}
         return xb, qs2d
 
-    def _entry(self, x: torch.Tensor, ops: "Int8Ops") -> torch.Tensor:
-        """Image -> the input of the first stage that the tail runs."""
+    def _entry(self, x: torch.Tensor, ops: "Int8Ops", mesh) -> torch.Tensor:
+        """Image (or stripe) -> the input of the first stage that the tail
+        runs."""
         if self.has_s2d:
-            return ops.entry(*self.entry_operands(x), self.entry_res_scale)
+            out = ops.entry(*self.entry_operands(x, mesh), self.entry_res_scale)
+            return cut_entry(out, *inner_edges(mesh))
         if x.dtype == torch.uint8:
             raise ValueError(_U8_NEEDS_S2D)
-        return self.stem.nhwc(quantize_image(x, self.scales["image"]))
+        return self.stem.nhwc(quantize_image(x, self.scales["image"]), mesh=mesh)
 
-    def forward(self, x: torch.Tensor, plain: bool = False):
+    def forward(self, x: torch.Tensor, plain: bool = False, mesh=None):
         ops = PLAIN if plain else KERNELS
         sc = self.scales
-        y = self._entry(x, ops)
+        y = self._entry(x, ops, mesh)
 
         routes = []
         for i, (down, blocks) in enumerate(zip(self.downs, self.stages),
                                            start=self.first_stage):
             if isinstance(down, _QConv):
-                y = down.nhwc(y, stride=2)
+                y = down.nhwc(y, stride=2, mesh=mesh)
             b, h, w, _ = y.shape
             _, hp, wp = FC.p2d_geometry(b, h, w)
             y2d = FC.pack_p2d(y)
             for blk in blocks:
-                y2d = blk(y2d, hp, wp, ops)
+                y2d = blk(y2d, hp, wp, ops, mesh)
             y = FC.unpack_p2d(y2d, b, h, w)
             if i >= 2:
                 routes.append(y2d)
@@ -572,13 +672,16 @@ class YoloNetQuantized(nn.Module):
             r = _requant(FC.unpack_p2d(route2d, *g_big), s_route, s_cat)
             return FC.pack_p2d(torch.cat([u, r], dim=-1))
 
-        det0, br0 = self.head0(c5, g5[1] + 2, g5[2] + 2, ops)
+        det0, br0 = self.head0(c5, g5[1] + 2, g5[2] + 2, ops, mesh)
         y2d = up_concat(self.up0, br0, c4, g5, g4, sc["up0/conv"], s_c4, sc["concat1"])
-        det1, br1 = self.head1(y2d, g4[1] + 2, g4[2] + 2, ops)
+        det1, br1 = self.head1(y2d, g4[1] + 2, g4[2] + 2, ops, mesh)
         y2d = up_concat(self.up1, br1, c3, g4, g3, sc["up1/conv"], s_c3, sc["concat2"])
-        det2, _ = self.head2(y2d, g3[1] + 2, g3[2] + 2, ops)
-        return tuple(FC.unpack_p2d(d, *g).contiguous()
-                     for d, g in ((det0, g5), (det1, g4), (det2, g3)))
+        det2, _ = self.head2(y2d, g3[1] + 2, g3[2] + 2, ops, mesh)
+        heads = tuple(FC.unpack_p2d(d, *g).contiguous()
+                      for d, g in ((det0, g5), (det1, g4), (det2, g3)))
+        if D._space_sharded(mesh):
+            heads = tuple(gather_rows(h, mesh) for h in heads)
+        return heads
 
 
 def _stem_u8(qs: Dict) -> Dict:

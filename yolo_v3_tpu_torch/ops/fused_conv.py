@@ -194,9 +194,11 @@ def conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
 
 
 def res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
-                      out_dtype=torch.int8, res_scale=1.0):
+                      out_dtype=torch.int8, res_scale=1.0, border=None):
     """Plain version of :func:`res_block_p2d`."""
     mid = conv1x1_p2d_ref(x2d, w1, s1, b1, hp, wp, out_dtype=x2d.dtype)
+    if border is not None:
+        mid = border(mid)
     return conv3x3_p2d_ref(mid, w2, s2, b2, hp, wp, out_dtype=out_dtype,
                            residual=x2d, res_scale=res_scale)
 
@@ -493,13 +495,19 @@ conv3x3_p2d.launches = 0
 
 
 def res_block_p2d(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
-                  out_dtype=torch.int8, res_scale=1.0):
+                  out_dtype=torch.int8, res_scale=1.0, border=None):
     """x + leaky(conv3x3(leaky(conv1x1(x)))) with the add fused into the
     3x3's epilogue; ``res_scale`` rescales the identity into the output's
     quantization domain (1 for bf16).  The composition of the two kernels (their plain
-    versions on a CPU tensor).  ``res_block_p2d.launches`` counts the blocks
-    run on the card, each one launch of either kernel."""
+    versions on a CPU tensor).  ``border`` (a callable, or None) takes the
+    1x1's output and returns it with its border rows filled before the 3x3
+    reads it: a height-sharded forward puts the neighbouring stripes' rows
+    of the 1x1's output there (:func:`set_border_rows`).
+    ``res_block_p2d.launches`` counts the blocks run on the card, each one
+    launch of either kernel."""
     mid = conv1x1_p2d(x2d, w1, s1, b1, hp, wp, out_dtype=x2d.dtype)
+    if border is not None:
+        mid = border(mid)
     out = conv3x3_p2d(mid, w2, s2, b2, hp, wp, out_dtype=out_dtype,
                       residual=x2d, res_scale=res_scale)
     if x2d.device.type == "cuda":

@@ -12,13 +12,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    a ``C75xx`` warning (``fused_res_block``: other than C7519, the
    ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``), on
    SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every ``HGMMA``
-   (bf16) or ``IGMMA`` (int8), each ``wgmma`` waiting for the one before,
-   and on a ``conv_p2d`` or ``fused_entry`` kernel with no GMMA at all;
+   (bf16, tf32) or ``IGMMA`` (int8), each ``wgmma`` waiting for the one
+   before, and on any kernel of the three with no GMMA at all (the fp32
+   residual block's included: 3xTF32 on ``wgmma``);
 3. kernel vs plain, with the device time of both (CUDA-graph replay), the
    card's bound for the same work and, where one PyTorch call computes the
    same function, that call's time: the fused residual-block kernel at the 5
    residual-block shapes of YOLOv3-416 at batch 8 in fp32 and bf16 (beside
-   cuDNN convs in the working dtype, TF32 off); the bf16 padded-2D kernels
+   cuDNN convs in the working dtype, TF32 off; with the launch plan: tile
+   geometry, tiles an image, cluster, splits); the bf16 padded-2D kernels
    (conv1x1_p2d, conv3x3_p2d) at every head and up shape of the bf16
    forward (with the tile shape the planner picks, and the host time of
    one launch), and their composition res_block_p2d at 26^2, within rtol =
@@ -158,7 +160,8 @@ NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
 # the sources whose kernels run wgmma, and the ptxas warnings each may carry
 # (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
-# registers, which fused_res_block's conv2 has; not a serialization)
+# registers, which fused_res_block's bf16 conv2 and both fp32 convs have;
+# not a serialization)
 WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",), "fused_entry": ()}
 # a kernel's name, its input type (conv_p2d_kernel's template argument) and
 # its integer template arguments, in a mangled name
@@ -240,7 +243,7 @@ def check_build(card, libs):
     """Phase 2's report: every kernel's registers and spills from ptxas;
     for the wgmma sources, no unexpected C75xx warning and no serialized
     wgmma in the SASS (cuobjdump): per kernel, fewer waits for all wgmma
-    groups than GMMAs (HGMMA bf16, IGMMA int8); every conv_p2d kernel has
+    groups than GMMAs (HGMMA bf16 and tf32, IGMMA int8); every kernel has
     GMMAs."""
     from torch.utils.cpp_extension import CUDA_HOME
     from yolo_v3_tpu_torch.ops import _build
@@ -280,8 +283,7 @@ def check_build(card, libs):
             elif kernel and "WARPGROUP.DEPBAR.LE gsb0, 0x0" in line:
                 counts[kernel][2] += 1
         for kernel, (hgmma, igmma, waits) in counts.items():
-            if name in ("conv_p2d", "fused_entry"):
-                check(hgmma + igmma > 0, f"{kernel}: no GMMA in the SASS")
+            check(hgmma + igmma > 0, f"{kernel}: no GMMA in the SASS")
             if hgmma + igmma:
                 log(f"sass {name}: {kernel} HGMMA {hgmma}, IGMMA {igmma}, "
                     f"WARPGROUP.DEPBAR.LE gsb0 0x0 {waits}")
@@ -413,7 +415,7 @@ def check_kernel(card):
     per-dtype {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by},
     device ms summed over one forward's 23 blocks."""
     from yolo_v3_tpu_torch.ops.fused_res_block import (
-        cluster_size, fused_res_block, fused_res_block_ref)
+        fused_res_block, fused_res_block_ref, plan)
     from yolo_v3_tpu_torch.utils.precision import full_fp32
 
     summary = {}
@@ -436,7 +438,10 @@ def check_kernel(card):
             macs = BATCH * h * h * (c * cmid + 9 * cmid * c)
             nbytes = size * (2 * BATCH * h * h * c + 10 * c * cmid + cmid + c)
             b_ms, by = add_bound(acc, n, 2 * macs, nbytes, NAMES[dtype])
-            split = f" cluster={cluster_size(BATCH, h, h, c, cmid, dtype)}"
+            p = plan(BATCH, h, h, c, cmid, dtype)
+            split = (f" cluster={p['cluster']} geometry={p['geometry']} tiles={p['tiles']}/image "
+                     f"splits={p['splits']} channels/warpgroup={p['variant']} "
+                     f"smem={p['smem']} B")
             log(f"kernel {NAMES[dtype]} [{BATCH},{h},{h},{c}] max_abs_err={e:.3e} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({by}){split} x{n} blocks tol={TOL[dtype]} | {card}")
@@ -2700,10 +2705,11 @@ def launch_cost(name, args, out):
 def check_and_time(seen):
     """Each captured launch against its plain version on the same inputs, at
     phase 3's tolerances, with its launch plan (the residual block's cluster
-    size; the p2d kernel's tiles, checked against ``plan_tiles`` by
+    size and tile geometry; the p2d kernel's tiles, checked against
+    ``plan_tiles`` by
     :func:`plan_line`) and the device ms of the kernel and of the plain
     version at that shape beside the bound: one dict a shape."""
-    from yolo_v3_tpu_torch.ops.fused_res_block import cluster_size
+    from yolo_v3_tpu_torch.ops.fused_res_block import plan as res_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = kernel_counters()
@@ -2715,7 +2721,8 @@ def check_and_time(seen):
         diff = (got.float() - want.float()).abs()
         ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
         if name == "fused_res_block":
-            plan = f"cluster {cluster_size(*x.shape, args[1].shape[-1], x.dtype)}"
+            p = res_plan(*x.shape, args[1].shape[-1], x.dtype)
+            plan = f"cluster {p['cluster']} {p['geometry']}"
         elif name in ("conv1x1_p2d", "conv3x3_p2d"):
             plan = "tiles " + plan_line(x.shape[0], x.shape[1], args[2].shape[0],
                                         9 if name == "conv3x3_p2d" else 1, x.dtype, sms)[0]
@@ -3101,6 +3108,10 @@ def main():
                     replaces="yolo_v3_tpu/ops/pallas_kernels.py:97",
                     launches=launches[dt]["fused_res_block"], **summary[dt])
                for dt in (torch.float32, torch.bfloat16)]
+    kernels[0]["design"] = ("3xTF32 on wgmma m64nNk8 (A split in registers, B hi / lo "
+                            "planes by TMA from a producer warpgroup), fresh partial sums "
+                            "in two banks, 8x8 or flat 64-pixel tiles, conv1 shared in a "
+                            "cluster")
     p2d = (("conv1x1_p2d", "csrc/conv_p2d.cu", "fused_conv.py:131"),
            ("conv3x3_p2d", "csrc/conv_p2d.cu", "fused_conv.py:236"),
            ("res_block_p2d", "ops/fused_conv.py", "fused_conv.py:313"))

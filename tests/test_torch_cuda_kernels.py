@@ -19,6 +19,7 @@ from yolo_v3_tpu_torch.ops.fused_res_block import (
     cluster_size,
     fused_res_block,
     fused_res_block_ref,
+    plan,
 )
 from yolo_v3_tpu_torch.utils.precision import full_fp32
 
@@ -67,6 +68,9 @@ def _block_inputs(shape, cmid, dtype, dev, seed=0):
     ((8, 104, 104, 128), 64),     # YOLOv3-416 at the serving batch
     ((8, 52, 52, 256), 128),
     ((8, 76, 76, 256), 128),      # YOLOv3-608
+    ((4, 26, 26, 512), 256),      # phase 10: batch 4 under the data axis,
+    ((4, 13, 13, 1024), 512),
+    ((8, 8, 13, 1024), 512),      # and a 13-wide stripe of rank 0 under space
 ])
 def test_kernel_matches_plain(dev, shape, cmid, dtype):
     args = _block_inputs(shape, cmid, dtype, dev)
@@ -79,13 +83,19 @@ def test_kernel_matches_plain(dev, shape, cmid, dtype):
 
 
 def test_f32_split_runs_in_clusters_on_small_grids(dev):
-    """At batch 8 the 52x52 and 13x13 blocks split each tile over a cluster
-    (conv1 shared through distributed shared memory); 208x208 fills the card
-    unsplit.  The other batch-8 shapes of test_kernel_matches_plain run
-    whichever split the host picks, clusters included."""
+    """At batch 8 the 26x26 and 13x13 blocks split each tile over a cluster
+    (conv1 shared through distributed shared memory) and take flat tiles (64
+    pixels in raster order: 11 and 3 an image, against 16 and 4 of 8x8);
+    19x19 (ragged) splits too; 208x208 fills the card unsplit, in 8x8
+    tiles.  The other batch-8 shapes of test_kernel_matches_plain run
+    whichever split and geometry the host picks."""
     assert cluster_size(8, 208, 208, 64, 32) == 1
-    assert cluster_size(8, 52, 52, 256, 128) > 1
-    assert cluster_size(8, 13, 13, 1024, 512) > 1
+    assert plan(8, 208, 208, 64, 32)["geometry"] == "8x8"
+    for hw, c, tiles in ((26, 512, 11), (13, 1024, 3)):
+        got = plan(8, hw, hw, c, c // 2)
+        assert got["cluster"] > 1
+        assert got["geometry"] == "flat" and got["tiles"] == tiles
+        assert got["mid_rows"] == 64 + 2 * hw + 2
     assert cluster_size(8, 19, 19, 1024, 512) > 1
 
 

@@ -27,8 +27,9 @@
 // 495 TFLOP/s when each product is taken as 3 TF32 products (below), against
 // 0.32 ms to move y, out and the weights once at 3.35 TB/s.
 //
-// What the design does about it.  One block owns an 8x8 output tile.  mid is
-// computed for the whole 10x10 halo window, kept in shared memory, and conv2
+// What the design does about it.  One block owns a tile of 64 output pixels
+// (8x8; fp32 may take a raster run instead, below).  mid is computed for the
+// tile's whole halo (the 10x10 window), kept in shared memory, and conv2
 // runs over the block's share of the output channels from there.  mid never
 // touches device memory, y is read once for conv1 (plus a 1-pixel halo) and
 // once for the residual, and out is written once: the block's traffic is the
@@ -59,25 +60,36 @@
 // issue rate, about half the card's bf16 peak, and per-block latencies
 // (TMA, barriers, the epilogue) where blocks are short (208x208, 104x104).
 //
-// fp32 (mma.sync m16n8k8 TF32, 3xTF32): one TF32 product keeps 10 mantissa
+// fp32 (wgmma m64nNk8 .tf32, 3xTF32): one TF32 product keeps 10 mantissa
 // bits and would miss fp32's results by ~5e-4 at K = 4608, so every operand
 // x is split as hi = tf32(x), lo = tf32(x - hi), and each product is taken as
-// lo*hi + hi*lo + hi*hi (the lo*lo term is below fp32's rounding).  The
-// tensor cores' own fp32 accumulation truncates, so each pipeline step sums
-// into a fresh partial and the partials are added in plain fp32.  The
-// weights arrive split, K-major and interleaved from the host, so one
-// 16-byte shared load is a B fragment's hi and lo.  y is split in registers;
-// mid is split once per 32-channel chunk into a buffer laid out the same
-// way, so conv2's A fragments are plain 16-byte loads.  Weights stream
-// through cp.async rings (conv1 and conv2 share one region).  Where the grid
-// is small, the output channels are split over a thread-block cluster of up
-// to 8 blocks of the same tile, and conv1 is split with them: block j
-// computes only its slice of mid channels, and conv2 reads the other slices
-// from the peers' shared memory (distributed shared memory), a chunk at a
-// time, loaded into registers one chunk ahead.  conv1 is done once per tile,
-// and each block's mid shrinks by the cluster size.  What bounds it now is
-// the mma.sync issue and the shared-memory traffic of its fragments, not the
-// card's bytes (PERF.md).
+// lo*hi + hi*lo + hi*hi (the lo*lo term is below fp32's rounding): three
+// wgmma per k8.  The weights arrive from the host as separate hi and lo
+// planes, K-major and zero-padded, and TMA stages a step's 32 K of both (32
+// fp32 are one 128-byte swizzled row, as 64 bf16 are).  TF32 wgmma takes no
+// transpose, so A comes from registers: y (conv1) and mid's shifted rows
+// (conv2) are loaded as fp32 and split there (cvt.rna.tf32.f32, which the
+// host's split_tf32 mirrors).  The tensor cores' own fp32 accumulation
+// truncates, so the products go into partial sums of 32 K (FKPART steps),
+// in two banks that alternate, and each partial is added into the total in
+// plain fp32 while the other bank's products run.  One thread of the block
+// issues every TMA load through one ring, a few steps ahead; the two
+// warpgroups multiply (no producer warp: a ninth warp would cap every
+// thread at 168 registers, too few for a total, two banks and two split A
+// fragments).  A tile is 64 output pixels: an 8x8 square, or 64 pixels in
+// raster order (flat) where the image is at most 31 wide, so that 13x13 and
+// 26x26 do not spend a third of conv2 on padding (3 and 11 tiles an image,
+// where 8x8 takes 4 and 16); a flat tile's conv1 covers the raster run of mid
+// rows one image row above and below it, and its taps read 0 where they
+// would wrap past the left or right edge.  Where the grid is small, the
+// output channels are split over a cluster of up to 8 blocks of the same
+// tile, conv1 with them (block j computes mid channels [j*MS, (j+1)*MS)),
+// and conv2 copies each 32-channel chunk of mid from the block that holds it
+// (distributed shared memory) one chunk ahead; clusters repeat where SMs
+// would idle, as bf16's do.  It runs at ~22% of its bound (PERF.md); what
+// holds it there is not measured yet.  The candidates: each block streams
+// its channels' hi and lo weight planes from L2 for only 64 pixels, and
+// shared memory serves B's hi plane twice a k8, not the card's bytes.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -100,7 +112,6 @@ constexpr int TH = 8;               // output tile rows
 constexpr int TW = 8;               // output tile columns
 constexpr int HWIN = TW + 2;        // halo window width
 constexpr int HP = (TH + 2) * HWIN; // halo window pixels (100)
-constexpr int NT = 256;             // threads per block
 constexpr float LEAKY = 0.1f;
 
 __device__ __forceinline__ float leaky(float x) { return x > 0.f ? x : LEAKY * x; }
@@ -422,40 +433,44 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: 3xTF32 on tensor cores (mma.sync m16n8k8), conv1 shared in a cluster
+// fp32: 3xTF32 on wgmma (m64nNk8 .tf32), conv1 shared in a cluster
 // ---------------------------------------------------------------------------
 
-constexpr int FK1 = 32;           // input channels per conv1 step
-constexpr int FN1 = 64;           // mid channels per conv1 pass: 8 n8 tiles per warp
-constexpr int FK2 = 32;           // mid channels per conv2 step (one tap of one chunk)
-constexpr int FMGRAN = 32;        // mid channels are padded to this (weights, shared memory)
-constexpr int FNS1 = 2;           // depth of conv1's cp.async ring
-constexpr int FNS2 = 2;           // depth of conv2's cp.async ring
-// Row strides (floats).  y rows are read 4 bytes a lane: 20 = 4 mod 32 puts
-// 8 rows x 4 columns on 32 banks.  Split rows (weights, and the current mid
-// chunk) hold hi and lo interleaved, 2K values, read 16 bytes a lane, a
-// quarter warp (2 rows) at a time: 16 mod 32.
-constexpr int FYS = FK1 + 4;
-constexpr int FB1S = 2 * FK1 + 16;
-constexpr int FB2S = 2 * FK2 + 16;
-constexpr int FAS = 2 * FK2 + 16;
-constexpr int FMSKEW = 4;         // mid row padding
-constexpr int FSTAGE1 = HP * FYS + FN1 * FB1S;  // a conv1 step: y rows, w1 rows
-constexpr int FCHUNK = HP * FAS;  // the current mid chunk, split
-// conv2 runs in one of two shapes, chosen on the host by C: NI = 2 n8 tiles
-// per warp (a 32 x 16 warp tile, 64 channels a pass, 2 blocks per SM) or
-// NI = 4 (32 x 32, 128 channels a pass, 1 block per SM with the registers
-// that allows: fewer shared loads and barriers per MMA).
-// channels per conv2 pass, and a conv2 step (w2 rows)
-__host__ __device__ constexpr int f32_n2(int NI) { return 32 * NI; }
-__host__ __device__ constexpr int f32_stage2(int NI) { return f32_n2(NI) * FB2S; }
-// conv1's ring, then conv2's ring and chunk, in one region after mid
-__host__ __device__ constexpr int f32_region(int NI) {
-  return FNS1 * FSTAGE1 > FNS2 * f32_stage2(NI) + FCHUNK ? FNS1 * FSTAGE1
-                                                           : FNS2 * f32_stage2(NI) + FCHUNK;
+constexpr int FBK = 32;          // K per step: 32 fp32, one 128-byte row of a staged operand
+constexpr int FBM1 = 128;        // conv1 rows: the tile's mid rows padded to 2 x m64
+constexpr int FMGRAN = 32;       // mid channels are padded to this (one chunk of conv2's K)
+// Threads: 2 warpgroups, one of whose threads also issues the TMA loads.  A
+// producer warp would put a third warp on one of the SM's four register
+// files and cap every thread at 168 registers; with 8 warps a thread may
+// hold 255, enough for a total and two partial banks of N / 2 floats and
+// two split A fragments without spills.
+constexpr int FNT = 256;
+constexpr int FCS = FBK + 4;     // row stride (floats) of a copied mid chunk
+constexpr int FMSKEW = 4;        // mid row padding (floats)
+constexpr int FKPART = 1;        // steps a partial sum spans (K = 32 per partial)
+constexpr int TP = TH * TW;      // output pixels of a tile (one m64)
+// A flat tile (64 pixels in raster order) reads mid rows [p0 - W - 1, p0 + 64 + W]:
+// 64 + 2W + 2 of them, which must fit conv1's FBM1.
+constexpr int FLAT_MAX_W = (FBM1 - TP - 2) / 2;
+
+// A ring slot (bytes): conv1's y rows and w1's hi and lo planes (N rows
+// each), or conv2's w2 hi and lo planes (2N rows each: both warpgroups).
+__host__ __device__ constexpr int f32_stage(int N) {
+  return (FBM1 + 2 * N) > 4 * N ? (FBM1 + 2 * N) * 128 : 4 * N * 128;
 }
-constexpr int FGROUPS = HP * (FK2 / 8);               // 8-channel groups of a chunk
-constexpr int FPRE = (FGROUPS + NT - 1) / NT;         // ... per thread
+// The TMA ring (conv1's steps, then conv2's): loads run FLOOK steps ahead of
+// the step being multiplied, so that the slot a load reuses was released
+// FNS - FLOOK - 1 steps before and its `empty` wait rarely blocks.  Short
+// steps (N = 32: 208x208) take a deeper ring to cover TMA's latency.
+constexpr int FLOOK_SLACK = 2;
+__host__ __device__ constexpr int f32_slots(int N) { return N == 32 ? 6 : 4; }
+// + 1024: the ring's alignment; the barriers; the two copied chunks of a
+// cluster's mid (cs > 1); this block's mid slice
+__host__ __device__ constexpr size_t f32_smem(int N, int ms_chunk, int cs, int mrows) {
+  return 1024 + (size_t)f32_slots(N) * f32_stage(N) + 2 * f32_slots(N) * sizeof(uint64_t) +
+         (cs > 1 ? 2 * (size_t)mrows * FCS * sizeof(float) : 0) +
+         (size_t)mrows * (ms_chunk + FMSKEW) * sizeof(float);
+}
 
 __device__ __forceinline__ unsigned to_tf32(float x) {
   unsigned r;
@@ -470,305 +485,399 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+// d[64 x N] (+)= A[64 x 8] @ B[8 x N] in TF32: A in registers (this warp's 16
+// rows as the m16n8k8 TF32 fragment: rows g, g + 8, columns q, q + 4), B
+// K-major in shared memory (db; TF32 takes no transpose).  scale_d = 0
+// overwrites d.  d's thread layout is the bf16 forms' (sm90.cuh).
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const unsigned (&a)[4],
+                                               uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// c += a @ b in 3xTF32: the two cross terms first, the large term last.
-// b: hi(k = q), lo(k = q), hi(k = q + 4), lo(k = q + 4), one 16-byte load.
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], const float4& b) {
-  const unsigned bh0 = __float_as_uint(b.x), bl0 = __float_as_uint(b.y);
-  const unsigned bh1 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const unsigned (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// The tensor cores add into their fp32 accumulator without rounding to
-// nearest, which over K = 4608 drifts ~30x past an fp32 sum.  So each ring
-// step's products go into a fresh partial sum, and the partials are added
-// in plain fp32.
 template <int N>
-__device__ __forceinline__ void add_partials(float (&acc)[N][4], float (&part)[N][4]) {
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const unsigned (&a)[4], uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 32) wgmma_tf32_n32(d, a, db, scale_d);
+  else wgmma_tf32_n64(d, a, db, scale_d);
+}
+
+// One step's A (K = FBK: 4 k8), split: x = hi + lo.
+struct F32Frag {
+  unsigned hi[FBK / 8][4], lo[FBK / 8][4];
+};
+
+__device__ __forceinline__ void fence_frag(F32Frag& f) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int j = 0; j < FBK / 8; ++j) {
+    fence_regs(f.hi[j]);
+    fence_regs(f.lo[j]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add_bank(float (&tot)[N / 2], const float (&part)[N / 2]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[i][e] += part[i][e];
-      part[i][e] = 0.f;
+  for (int i = 0; i < N / 2; ++i) tot[i] += part[i];
+}
+
+// tot += A @ B over `steps` steps of K = FBK (ring iterations it0 .., NS
+// slots), each product as lo*hi + hi*lo + hi*hi (3xTF32; lo*lo is below
+// fp32's rounding).  gather(s, frag) loads and splits step s's A into
+// registers; B's hi and lo planes sit at byte offsets b_hi and b_lo of the
+// step's ring slot.  pre(s) runs on every thread before step s's gather;
+// issue(it) on every thread once step it0 + s - 1's slot is released (the
+// loading thread issues ring iteration it + NS - FLOOK_SLACK there).
+//
+// The tensor cores add into their fp32 accumulator without rounding to
+// nearest, which over K = 4608 drifts ~30x past an fp32 sum.  So products go
+// into partial sums of kpart steps, in two banks that take the steps in turn
+// (the first wgmma of a fresh partial has scale-d = 0), and each partial is
+// added into tot in plain fp32 once its group is done, while the other
+// bank's products run.  A is double-buffered the same way: step s + 1's
+// gather runs while step s multiplies.
+template <int N, int NS, class Pre, class Gather, class Issue>
+__device__ __forceinline__ void f32_gemm(float (&tot)[N / 2], int steps, int it0, int kpart,
+                                         bool active, const unsigned char* ring, int b_hi,
+                                         int b_lo, uint64_t* full, uint64_t* empty, int lane,
+                                         Pre& pre, Gather& gather, Issue& issue) {
+  float p0[N / 2], p1[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) p0[i] = p1[i] = 0.f;
+  F32Frag f0, f1;
+  // step u closes its bank's partial: its kpart-th use, or the bank's last
+  auto closes = [&](int u) { return (u / 2) % kpart == kpart - 1 || u + 2 >= steps; };
+  auto step = [&](int s, float (&P)[N / 2], float (&Q)[N / 2], F32Frag& cur, F32Frag& next) {
+    if (active) {
+      const unsigned char* st = ring + (it0 + s) % NS * f32_stage(N);
+      const uint64_t dh = wgmma_desc(st + b_hi), dl = wgmma_desc(st + b_lo);
+      const int keep = (s / 2) % kpart != 0;  // 0: the step opens a partial
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < FBK / 8; ++j) {
+        wgmma_tf32<N>(P, cur.lo[j], dh + 2 * j, j == 0 ? keep : 1);
+        wgmma_tf32<N>(P, cur.hi[j], dl + 2 * j, 1);
+        wgmma_tf32<N>(P, cur.hi[j], dh + 2 * j, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // step s - 1's group: its bank, its A (`next`) and its slot are free
+      fence_regs(Q);
+      fence_frag(next);
+      if (s > 0 && closes(s - 1)) add_bank<N>(tot, Q);
     }
+    if (s > 0 && lane == 0) mbar_arrive(&empty[(it0 + s - 1) % NS]);
+    issue(it0 + s);
+    if (s + 1 < steps) {
+      pre(s + 1);
+      mbar_wait(&full[(it0 + s + 1) % NS], (it0 + s + 1) / NS & 1);
+      if (active) gather(s + 1, next);
+    }
+  };
+  pre(0);
+  mbar_wait(&full[it0 % NS], it0 / NS & 1);
+  if (active) gather(0, f0);
+  for (int s = 0; s < steps; s += 2) {
+    step(s, p0, p1, f0, f1);
+    if (s + 1 < steps) step(s + 1, p1, p0, f1, f0);
+  }
+  wgmma_wait<0>();  // every thread, so that none leaves with a group it cannot see retired
+  if (active) {
+    fence_regs(p0);
+    fence_regs(p1);
+    fence_frag(f0);
+    fence_frag(f1);
+    if ((steps - 1) % 2 == 0)
+      add_bank<N>(tot, p0);
+    else
+      add_bank<N>(tot, p1);
+  }
+  if (lane == 0) mbar_arrive(&empty[(it0 + steps - 1) % NS]);
 }
 
-// Split 8 consecutive mid channels (lo4: channels 0-3, hi4: 4-7) and store
-// them interleaved as an A fragment wants them: for column q < 4, hi(q),
-// lo(q), hi(q + 4), lo(q + 4).
-__device__ __forceinline__ void store_split8(float* dst, const float4& lo4, const float4& hi4) {
-  const float a[4] = {lo4.x, lo4.y, lo4.z, lo4.w}, b[4] = {hi4.x, hi4.y, hi4.z, hi4.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    unsigned h0, l0, h1, l1;
-    split_tf32(a[q], h0, l0);
-    split_tf32(b[q], h1, l1);
-    *reinterpret_cast<float4*>(dst + 4 * q) = make_float4(
-        __uint_as_float(h0), __uint_as_float(l0), __uint_as_float(h1), __uint_as_float(l1));
-  }
-}
-
-// Stage the first n (any int) of 4 floats from global `src` into shared
-// `dst`, zero-filling the rest: one cp.async where the run is 16-byte
-// aligned, else element by element.
-__device__ __forceinline__ void stage4(float* dst, const float* src, int n, bool vec) {
-  if (vec) {
-    cp_async16(dst, src, n >= 4 ? 16 : (n > 0 ? 4 * n : 0));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dst[i] = i < n ? src[i] : 0.f;
-  }
-}
-
-// Run `steps` steps through an NS-slot ring of SLOT floats: load(s, slot)
-// issues step s's cp.async copies, compute(s, slot) consumes them.  Loads
-// run NS - 1 steps ahead; one barrier per step.  Returns with the ring idle.
-template <int NS, int SLOT, typename Load, typename Compute>
-__device__ __forceinline__ void ring_pipeline(int steps, float* ring, Load load,
-                                              Compute compute) {
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    if (s < steps) load(s, ring + s * SLOT);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<NS - 2>();  // step s has landed
-    __syncthreads();          // ... for every thread; slot (s - 1) is free
-    const int next = s + NS - 1;
-    if (next < steps) load(next, ring + (next % NS) * SLOT);
-    cp_async_commit();
-    compute(s, ring + (s % NS) * SLOT);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// y, out: [B, H, W, C]; b1: [Cmid]; b2: [C].  The weights come split into
-// TF32 hi and lo parts, zero-padded, K-major and interleaved in groups of 8
-// K (ops/fused_res_block.py::tf32_weights): w1s [Mpad][2 * Cp] (Cp = C
-// rounded up to FK1), w2s [C][9][2 * Mpad] (Mpad = Cmid rounded up to
-// FMGRAN).  Grid: (tiles_h * tiles_w, cs, B) in clusters of (1, cs, 1), the
-// cs blocks of one tile.  Block rank j computes mid channels
-// [j*MS, (j+1)*MS) of the tile's halo window and output channels
-// [j*co_per_block, (j+1)*co_per_block); MS is a multiple of FK2.
-template <int NI>
-__global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
-    const float* __restrict__ y, const float* __restrict__ w1s,
-    const float* __restrict__ b1, const float* __restrict__ w2s,
-    const float* __restrict__ b2, float* __restrict__ out, int H, int W, int C,
-    int Cmid, int Mpad, int Cp, int MS, int tiles_w, int co_per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// y, out: [B, H, W, C] (C % 4 == 0); b1: [Cmid]; b2: [C].  The weights come
+// split into TF32 hi and lo planes, K-major and zero-padded, from the host
+// (ops/fused_res_block.py::tf32_weights): w1p [2][Mpad][Cp] (plane, mid
+// channel m, input channel k; Mpad = Cmid rounded up to FMGRAN, Cp = C
+// rounded up to FBK) and w2p [2][C][9 * Mpad] (output channel, then K
+// chunk-major: column (kc * 9 + t) * FBK + j holds w2[t / 3, t % 3, kc * FBK +
+// j, co]).  All three arrive as TMA descriptors, 128-byte swizzled: y_map
+// boxes of FBK channels x the tile's mid rows (flat: [B][H*W][C], 128
+// pixels from q0 = p0 - W - 1; 8x8: [B][H][W][C], the 10 x 10 halo window;
+// out-of-image pixels read as zeros), w1_map FBK x N x 2 planes, w2_map FBK x
+// 2N x 2 planes.
+//
+// Grid: (tiles, splits, B) in clusters of (1, cs, 1).  A tile is 64 output
+// pixels, an 8x8 square (mid rows: the 10 x 10 window, row stride 10) or,
+// where the image is narrow (flat), 64 pixels in raster order (mid rows: the
+// raster run from one row above to one row below, row stride W; a tap that
+// would wrap past the left or right edge reads 0).  Block rank j of a
+// cluster computes mid channels [j*MS, (j+1)*MS) of the tile's mid rows, and
+// blockIdx.y picks output channels [y*co_per_block, (y+1)*co_per_block).
+//
+// Thread 0 also loads: it issues every TMA load through one ring (conv1's
+// steps, then conv2's), FNS - FLOOK_SLACK steps ahead of the step being
+// multiplied, each slot with a `full` barrier (its bytes in) and an `empty`
+// barrier (the 8 warps out).  The two warpgroups multiply.
+template <int N>
+__global__ void __launch_bounds__(FNT, 1) res_block_f32_kernel(
+    const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap w1_map,
+    const __grid_constant__ CUtensorMap w2_map, const float* __restrict__ y,
+    const float* __restrict__ b1, const float* __restrict__ b2, float* __restrict__ out, int H,
+    int W, int C, int Cmid, int Mpad, int Cp, int MS, int flat, int tiles_w, int mrows,
+    int co_per_block, int kpart) {
+  constexpr int FNS = f32_slots(N), FLOOK = FNS - FLOOK_SLACK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + FNS * f32_stage(N));
+  uint64_t* empty = full + FNS;
+  const int rank = (int)cluster.block_rank(), cs = (int)cluster.num_blocks();
+  float* cbuf = reinterpret_cast<float*>(empty + FNS);  // [2][mrows][FCS]: copied chunks
+  float* mid = cbuf + (cs > 1 ? 2 * mrows * FCS : 0);   // [mrows][ms]: this block's slice
   const int ms = MS + FMSKEW;
-  float* mid = reinterpret_cast<float*>(smem);  // [HP][ms]: this block's mid channels
-  constexpr int FN2 = f32_n2(NI), FSTAGE2 = f32_stage2(NI);
-  float* ring = mid + HP * ms;                  // conv1: [FNS1][FSTAGE1]; conv2: [FNS2][FSTAGE2]
-  float* chunk = ring + FNS2 * FSTAGE2;         // conv2: [HP][FAS], the current chunk split
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < FNS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, q = lane % 4;         // mma fragment row, column
+  // the warp index as a warp-uniform value (a shuffle), so that the compiler
+  // sees the wgmma paths below as convergent (see the bf16 kernel)
+  const int tid = threadIdx.x, lane = tid % 32, warp = __shfl_sync(0xffffffff, tid / 32, 0);
+  const int wg = warp / 4, wq = warp % 4;  // warpgroup, its warp
+  const int g = lane / 4, q = lane % 4;    // accumulator row, column pair
   const int b = blockIdx.z;
-  const int ty0 = (blockIdx.x / tiles_w) * TH;
+  const int p0 = blockIdx.x * TP;                       // flat: the tile's first pixel
+  const int q0 = p0 - W - 1;                            // flat: its first mid row's pixel
+  const int ty0 = (blockIdx.x / tiles_w) * TH;          // 8x8: the tile's corner
   const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const size_t img = (size_t)b * H * W * C;
-  const int rank = (int)cluster.block_rank();
   const int m_lo = rank * MS;                   // this block's first mid channel
-  const int nm = max(0, min(MS, Mpad - m_lo));  // ... and how many it holds
+  const int nm = max(0, min(MS, Mpad - m_lo));  // ... and how many it computes
+  const int steps1 = Cp / FBK, n1 = (nm + N - 1) / N * steps1;
+  const int nchunks = Mpad / FBK, steps2 = 9 * nchunks;
+  const int co_begin = blockIdx.y * co_per_block;
+  const int co_end = min(C, co_begin + co_per_block);
+  const int n_all = n1 + (co_end - co_begin + 2 * N - 1) / (2 * N) * steps2;
 
-  // ---- conv1: mid[100 x nm] = y_halo[100 x C] @ w1[C x (m_lo .. m_lo + nm)] --
-  // Warp w < 7 owns m16 tile w (the 7 cover the 100 halo pixels) and all
-  // FN1 mid channels of the pass, so each y value is split once per warp.
-  {
-    const bool c_vec = C % 4 == 0;
-    const int r0 = warp * 16 + g, r1 = r0 + 8;  // this lane's halo pixels
-    for (int n0 = 0; n0 < nm; n0 += FN1) {
-      float acc[FN1 / 8][4] = {}, part[FN1 / 8][4] = {};
-      auto load = [&](int s, float* st) {  // st: y [HP][FYS], w1 [FN1][FB1S]
-        const int k0 = s * FK1;
-        float* ws = st + HP * FYS;
-        for (int i = tid; i < HP * (FK1 / 4); i += NT) {
-          const int p = i / (FK1 / 4), kk = (i % (FK1 / 4)) * 4;
+  // thread 0's TMA load of ring iteration `it` (conv1 pass it / steps1, or
+  // conv2 pass (it - n1) / steps2), once the slot's last step is released
+  auto load = [&](int it) {
+    if (it >= n_all) return;
+    const int slot = it % FNS;
+    if (it >= FNS) mbar_wait(&empty[slot], (it / FNS - 1) & 1);
+    unsigned char* st = ring + slot * f32_stage(N);
+    if (it < n1) {
+      const int s = it % steps1, n0 = it / steps1 * N;
+      mbar_expect_tx(&full[slot],
+                     ((flat ? FBM1 : HP) + 2 * N) * FBK * (int)sizeof(float));
+      if (flat)
+        tma_load_3d(st, &y_map, &full[slot], s * FBK, q0, b);
+      else
+        tma_load_4d(st, &y_map, &full[slot], s * FBK, tx0 - 1, ty0 - 1, b);
+      tma_load_3d(st + FBM1 * 128, &w1_map, &full[slot], s * FBK, m_lo + n0, 0);
+    } else {
+      const int s = (it - n1) % steps2, c0 = co_begin + (it - n1) / steps2 * 2 * N;
+      mbar_expect_tx(&full[slot], 4 * N * FBK * (int)sizeof(float));
+      tma_load_3d(st, &w2_map, &full[slot], s * FBK, c0, 0);
+    }
+  };
+  // every thread, once ring iteration it - 1 is released: thread 0 loads
+  // iteration it + FLOOK
+  auto issue = [&](int it) {
+    if (tid == 0) load(it + FLOOK);
+    __syncwarp();
+  };
+  if (tid == 0) {
+    tma_prefetch_map(&y_map);
+    tma_prefetch_map(&w1_map);
+    tma_prefetch_map(&w2_map);
+    for (int it = 0; it < FLOOK; ++it) load(it);
+  }
+  __syncwarp();
+  const int r0 = wg * 64 + wq * 16 + g;  // conv1: this lane's mid rows r0, r0 + 8
+  auto no_pre = [](int) {};
+
+  // ---- conv1: mid[mrows x nm] = y[mrows x C] @ w1[C x (m_lo .. m_lo + nm)] --
+  // Warpgroup wg takes mid rows [64*wg, 64*wg + 64) of the 128 (rows past
+  // mrows hold stale or unused pixels; their sums are dropped), N mid
+  // channels a pass.  A is read from the staged y rows (row r's 16-byte chunk
+  // c sits at chunk c ^ (r % 8): the TMA swizzle) and split in registers.
+  for (int n0 = 0, it = 0; n0 < nm; n0 += N, it += steps1) {
+    float tot[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
+    auto gather1 = [&](int s, F32Frag& f) {
+      const float* yr = reinterpret_cast<const float*>(ring + (it + s) % FNS * f32_stage(N));
+#pragma unroll
+      for (int j = 0; j < FBK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = (((2 * j + c) ^ g) << 2) + q;
+          split_tf32(yr[r0 * FBK + col], f.hi[j][2 * c], f.lo[j][2 * c]);
+          split_tf32(yr[(r0 + 8) * FBK + col], f.hi[j][2 * c + 1], f.lo[j][2 * c + 1]);
+        }
+    };
+    f32_gemm<N, FNS>(tot, steps1, it, kpart, true, ring, FBM1 * 128, (FBM1 + N) * 128, full,
+                     empty, lane, no_pre, gather1, issue);
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = r0 + 8 * h;
+        const int n = n0 + i * 8 + 2 * q;  // local mid channel (nm % 32 == 0)
+        if (p >= mrows || n >= nm) continue;
+        bool inside;
+        if (flat) {
+          inside = (unsigned)(q0 + p) < (unsigned)(H * W);
+        } else {
           const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-          const float* src = in ? y + img + ((size_t)gy * W + gx) * C + k0 + kk : y;
-          stage4(st + p * FYS + kk, src, in ? C - k0 - kk : 0, c_vec);
+          inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
         }
-        for (int i = tid; i < FN1 * (FK1 / 2); i += NT) {
-          const int r = i / (FK1 / 2), kk = (i % (FK1 / 2)) * 4;
-          const bool in = n0 + r < nm;
-          const size_t off = in ? (size_t)(m_lo + n0 + r) * 2 * Cp + 2 * k0 + kk : 0;
-          cp_async16(ws + r * FB1S + kk, w1s + off, in ? 16 : 0);
-        }
-      };
-      auto compute = [&](int, const float* st) {
-        if (warp >= 7) return;
-        const float* ws = st + HP * FYS + g * FB1S + 4 * q;
-#pragma unroll
-        for (int kk = 0; kk < FK1; kk += 8) {
-          const float* x0 = st + r0 * FYS + kk + q;
-          const float* x1 = st + r1 * FYS + kk + q;
-          unsigned ah[4], al[4];
-          split_tf32(r0 < HP ? x0[0] : 0.f, ah[0], al[0]);
-          split_tf32(r1 < HP ? x1[0] : 0.f, ah[1], al[1]);
-          split_tf32(r0 < HP ? x0[4] : 0.f, ah[2], al[2]);
-          split_tf32(r1 < HP ? x1[4] : 0.f, ah[3], al[3]);
-#pragma unroll
-          for (int ni = 0; ni < FN1 / 8; ++ni)
-            if (n0 + ni * 8 < nm)
-              mma3(part[ni], ah, al,
-                   *reinterpret_cast<const float4*>(ws + ni * 8 * FB1S + 2 * kk));
-        }
-        add_partials(acc, part);
-      };
-      ring_pipeline<FNS1, FSTAGE1>((C + FK1 - 1) / FK1, ring, load, compute);
-      if (warp < 7) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = h ? r1 : r0;
-          if (p >= HP) continue;
-          const int gy = ty0 - 1 + p / HWIN, gx = tx0 - 1 + p % HWIN;
-          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-          for (int ni = 0; ni < FN1 / 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int n = n0 + ni * 8 + 2 * q + e;  // local mid channel
-              const int m = m_lo + n;
-              // 0 outside the image (the 3x3's zero padding) and in padded channels
-              if (n < nm)
-                mid[p * ms + n] = inside && m < Cmid ? leaky(acc[ni][2 * h + e] + b1[m]) : 0.f;
-            }
-        }
+        const int m = m_lo + n;
+        // 0 outside the image (the 3x3's zero padding) and in padded channels
+        const float v0 = inside && m < Cmid ? leaky(tot[4 * i + 2 * h] + b1[m]) : 0.f;
+        const float v1 = inside && m + 1 < Cmid ? leaky(tot[4 * i + 2 * h + 1] + b1[m + 1]) : 0.f;
+        *reinterpret_cast<float2*>(mid + p * ms + n) = make_float2(v0, v1);
       }
+  }
+  cluster_arrive();  // this block's mid slice is complete (release)
+  cluster_wait();    // ... and every peer's (acquire)
+
+  // ---- conv2: 9 tap GEMMs [64 x 9*Mpad] @ [9*Mpad x co] over the cluster's mid
+  // Step s is tap s % 9 of mid chunk s / 9 (FBK channels), K chunk-major as
+  // w2p lays it out.  Warpgroup wg owns channels [c0 + wg*N, c0 + (wg+1)*N)
+  // of a pass, its warp wq output pixels [16*wq, 16*wq + 16).  A rows are the
+  // mid rows shifted by the tap, loaded by address (a descriptor cannot
+  // express the shift) and split in registers.  In a cluster every chunk is
+  // first copied into one of two local buffers (from the peer that holds it:
+  // distributed shared memory), one chunk ahead, between block barriers.
+  const int rs = flat ? W : HWIN;  // mid row stride (pixels) of one image row
+  int arow[2];                     // mid rows of this lane's A rows at tap (0, 0)
+  bool left[2], right[2];          // flat: the pixel is at the left / right edge
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = wq * 16 + g + 8 * h;
+    if (flat) {
+      const int x = (p0 + i) % W;
+      arow[h] = i;
+      left[h] = x == 0;
+      right[h] = x == W - 1;
+    } else {
+      arow[h] = (i / TW) * HWIN + i % TW;
+      left[h] = right[h] = false;
     }
   }
-  cluster.sync();  // every block's mid slice is complete and visible to its peers
-
-  // ---- conv2: 9 tap GEMMs [64 x Mpad] @ [Mpad x co] over the cluster's mid --
-  // Warp tile: 32 pixels x 8*NI output channels.  Step s is tap s % 9 of mid
-  // chunk s / 9 (FK2 channels).  Before a chunk's first tap it is split once
-  // into `chunk`, from this block's mid or, for a chunk a peer holds, from
-  // registers loaded one chunk ahead out of the peer's shared memory
-  // (distributed shared memory, generic loads).
-  {
-    const int wm = warp / 4, wn = warp % 4;     // warp row, warp column
-    int hrow[2];  // halo row of this lane's A row g, tap (0,0); row g + 8 is HWIN further
+  const int per_rank = MS / FBK;  // mid chunks held by each block
+  auto copy_chunk = [&](int kc) {
+    const float* src = cluster.map_shared_rank(mid, kc / per_rank) + (kc % per_rank) * FBK;
+    float* dst = cbuf + (kc & 1) * mrows * FCS;
+    const int n = mrows * (FBK / 4);
+    float4 v[4];  // FBM1 * (FBK / 4) / 256 = 4 a thread: all loads, then all stores
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int p = wm * 32 + mi * 16 + g;
-      hrow[mi] = (p / TW) * HWIN + p % TW;
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + u * 256;
+      if (i < n) v[u] = *reinterpret_cast<const float4*>(src + (i / 8) * ms + (i % 8) * 4);
     }
-    const int per_rank = MS / FK2;  // mid chunks held by each block
-    const int nchunks = Mpad / FK2;
-    const int co_begin = blockIdx.y * co_per_block;
-    const int co_end = min(C, co_begin + co_per_block);
-    float4 pre[FPRE][2];  // this thread's 8-channel groups of the next chunk
-    auto gather = [&](const float* src) {  // src: the chunk's first channel, row stride ms
 #pragma unroll
-      for (int j = 0; j < FPRE; ++j) {
-        const int i = tid + j * NT;
-        if (i < FGROUPS) {
-          const float* at = src + (i / (FK2 / 8)) * ms + (i % (FK2 / 8)) * 8;
-          pre[j][0] = *reinterpret_cast<const float4*>(at);
-          pre[j][1] = *reinterpret_cast<const float4*>(at + 4);
-        }
-      }
-    };
-    auto fetch = [&](int kc) {  // issue the loads of chunk kc if a peer holds it
-      const int owner = kc / per_rank;
-      if (owner != rank)
-        gather(cluster.map_shared_rank(mid, owner) + (kc % per_rank) * FK2);
-    };
-    for (int c0 = co_begin; c0 < co_end; c0 += FN2) {
-      const bool active = c0 + wn * 8 * NI < co_end;
-      float acc[2 * NI][4] = {}, part[2 * NI][4] = {};  // [mi * NI + ni]
-      auto load = [&](int s, float* st) {  // st: w2 [FN2][FB2S]
-        const int kc = s / 9, t = s % 9;
-        const int koff = t * 2 * Mpad + 2 * kc * FK2;
-#pragma unroll
-        for (int j = 0; j < FN2 * (FK2 / 2) / NT; ++j) {
-          const int i = tid + j * NT;
-          const int r = i / (FK2 / 2), kk = (i % (FK2 / 2)) * 4;
-          const bool in = c0 + r < co_end;
-          cp_async16(st + r * FB2S + kk, in ? w2s + (c0 + r) * 18 * Mpad + koff + kk : w2s,
-                     in ? 16 : 0);
-        }
-      };
-      auto compute = [&](int s, const float* st) {
-        const int kc = s / 9, t = s % 9;
-        if (t == 0) {  // every warp is past the last chunk's taps
-          if (kc / per_rank == rank) gather(mid + (kc % per_rank) * FK2);
-#pragma unroll
-          for (int j = 0; j < FPRE; ++j) {
-            const int i = tid + j * NT;
-            if (i < FGROUPS)
-              store_split8(chunk + (i / (FK2 / 8)) * FAS + (i % (FK2 / 8)) * 16,
-                           pre[j][0], pre[j][1]);
-          }
-          __syncthreads();
-          if (kc + 1 < nchunks) fetch(kc + 1);
-        }
-        if (!active) return;
-        const float* ws = st + (wn * 8 * NI + g) * FB2S + 4 * q;
-        const float* as = chunk + ((t / 3) * HWIN + t % 3) * FAS + 4 * q;
-#pragma unroll
-        for (int kk = 0; kk < FK2; kk += 8) {
-          float4 bv[NI];
-#pragma unroll
-          for (int ni = 0; ni < NI; ++ni)
-            bv[ni] = *reinterpret_cast<const float4*>(ws + ni * 8 * FB2S + 2 * kk);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const float* x = as + hrow[mi] * FAS + 2 * kk;
-            const float4 v0 = *reinterpret_cast<const float4*>(x);             // row g
-            const float4 v1 = *reinterpret_cast<const float4*>(x + HWIN * FAS);  // row g + 8
-            const unsigned ah[4] = {__float_as_uint(v0.x), __float_as_uint(v1.x),
-                                    __float_as_uint(v0.z), __float_as_uint(v1.z)};
-            const unsigned al[4] = {__float_as_uint(v0.y), __float_as_uint(v1.y),
-                                    __float_as_uint(v0.w), __float_as_uint(v1.w)};
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni) mma3(part[mi * NI + ni], ah, al, bv[ni]);
-          }
-        }
-        add_partials(acc, part);
-      };
-      fetch(0);
-      ring_pipeline<FNS2, FSTAGE2>(nchunks * 9, ring, load, compute);
-      if (active) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = wm * 32 + mi * 16 + g + 8 * h;
-            const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-            if (gy >= H || gx >= W) continue;
-            const size_t row = img + ((size_t)gy * W + gx) * C;
-#pragma unroll
-            for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int co = c0 + wn * 8 * NI + ni * 8 + 2 * q + e;
-                if (co < co_end)
-                  out[row + co] =
-                      y[row + co] + leaky(acc[mi * NI + ni][2 * h + e] + b2[co]);
-              }
-          }
-      }
+    for (int u = 0; u < 4; ++u) {
+      const int i = tid + u * 256;
+      if (i < n) *reinterpret_cast<float4*>(dst + (i / 8) * FCS + (i % 8) * 4) = v[u];
     }
+  };
+  // before chunk kc's first gather: every consumer is past chunk kc - 1 and
+  // chunk kc is in; then chunk kc + 1 goes into the other buffer
+  auto pre2 = [&](int s) {
+    if (cs == 1 || s % 9 != 0) return;
+    const int kc = s / 9;
+    if (kc == 0) {
+      __syncthreads();
+      copy_chunk(0);
+    }
+    __syncthreads();
+    if (kc + 1 < nchunks) copy_chunk(kc + 1);
+  };
+  const size_t img = (size_t)b * H * W * C;
+  // the image offset of output pixel pi of the tile, or -1 past the image
+  auto pixel = [&](int pi) {
+    if (flat) return p0 + pi < H * W ? p0 + pi : -1;
+    const int gy = ty0 + pi / TW, gx = tx0 + pi % TW;
+    return gy < H && gx < W ? gy * W + gx : -1;
+  };
+  const int pix[2] = {pixel(wq * 16 + g), pixel(wq * 16 + g + 8)};
+  for (int c0 = co_begin, it = n1; c0 < co_end; c0 += 2 * N, it += steps2) {
+    const bool active = c0 + wg * N < co_end;  // uniform in the warpgroup
+    float tot[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) tot[i] = 0.f;
+    // the residual y of this thread's outputs, loaded while the pass runs
+    float2 yres[N / 8][2];
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = c0 + wg * N + i * 8 + 2 * q;  // co_end is even
+        yres[i][h] = active && pix[h] >= 0 && co < co_end
+                         ? *reinterpret_cast<const float2*>(y + img + (size_t)pix[h] * C + co)
+                         : make_float2(0.f, 0.f);
+      }
+    auto gather2 = [&](int s, F32Frag& f) {
+      const int kc = s / 9, t = s - 9 * kc, dx = t % 3;
+      const float* src = cs > 1 ? cbuf + (kc & 1) * mrows * FCS : mid + kc * FBK;
+      const int stride = cs > 1 ? FCS : ms;
+      const int shift = (t / 3) * rs + dx;
+      const bool z0 = dx == 0 ? left[0] : dx == 2 && right[0];
+      const bool z1 = dx == 0 ? left[1] : dx == 2 && right[1];
+      const float* x0 = src + (arow[0] + shift) * stride + q;
+      const float* x1 = src + (arow[1] + shift) * stride + q;
+#pragma unroll
+      for (int j = 0; j < FBK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 4 * c;
+          split_tf32(z0 ? 0.f : x0[col], f.hi[j][2 * c], f.lo[j][2 * c]);
+          split_tf32(z1 ? 0.f : x1[col], f.hi[j][2 * c + 1], f.lo[j][2 * c + 1]);
+        }
+    };
+    f32_gemm<N, FNS>(tot, steps2, it, kpart, active, ring, wg * N * 128, (2 * N + wg * N) * 128,
+                     full, empty, lane, pre2, gather2, issue);
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = c0 + wg * N + i * 8 + 2 * q;
+        if (pix[h] < 0 || co >= co_end) continue;
+        *reinterpret_cast<float2*>(out + img + (size_t)pix[h] * C + co) =
+            make_float2(yres[i][h].x + leaky(tot[4 * i + 2 * h] + b2[co]),
+                        yres[i][h].y + leaky(tot[4 * i + 2 * h + 1] + b2[co + 1]));
+      }
   }
-  cluster.sync();  // no block exits while a peer may still read its mid
+  cluster_arrive();  // done reading the peers' mid
+  cluster_wait();    // no block exits while a peer may still read its mid
 }
 
 // ---------------------------------------------------------------------------
@@ -778,17 +887,22 @@ __global__ void __launch_bounds__(NT, NI == 2 ? 2 : 1) res_block_f32_kernel(
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Each tile's output channels are split over `splits` blocks, and its mid
-// channels (conv1) over clusters of cs of them (fp32: cs = splits; bf16 may
-// repeat a cluster, each recomputing its conv1, where SMs would otherwise
-// idle): the planner picks the pair that minimises (waves of clusters on the
-// card, from cudaOccupancyMaxActiveClusters) x (one block's MACs: conv1's
-// share HP*C*MS plus conv2 on co_per_block channels).  Small grids (13x13,
-// 26x26 at batch 8) split; grids that already fill the card do not.  The
-// variant (the kernel's template argument) is picked by C:
-//   fp32: conv2's warp tile is 32 x 32 (NI = 4) where C >= 512 (26x26 and
-//     13x13 at 416): measured on an H100 at batch 8, it beats the 32 x 16
-//     tile there, and loses where C is small (C = 64 at 208x208 would leave
-//     half of its 128 channels idle);
+// channels (conv1) over clusters of cs of them (cs divides splits; where cs <
+// splits the cluster is repeated, each copy recomputing its conv1, where SMs
+// would otherwise idle): the planner picks the pair that minimises (waves of
+// clusters on the card, from cudaOccupancyMaxActiveClusters) x (one block's
+// MACs: conv1's share ROWS1*C*MS plus conv2 on co_per_block channels).
+// Small grids (13x13, 26x26 at batch 8) split; grids that already fill the
+// card do not.  fp32 also picks the tile geometry: where W <= FLAT_MAX_W a
+// tile may be 64 pixels in raster order (flat) rather than an 8x8 square, so
+// that 13x13 takes 3 tiles of 64 rows an image (88% of the rows real)
+// instead of 4 (66%) and 26x26 11 instead of 16; the planner counts tiles of
+// each geometry and keeps flat where its waves x MACs are lower.  The variant
+// (the kernel's template argument) is picked by C:
+//   fp32: N channels per warpgroup: 32 where C = 64 (both warpgroups busy),
+//     64 above (a total and two partial banks of N / 2 floats, two split A
+//     fragments and the residual fit a thread's 255 registers; 128 would
+//     not);
 //   bf16: V channels per warpgroup: 32 where C = 64 (both warpgroups busy),
 //     64 where C = 128, 128 above (measured on an H100 at batch 8: 64 lost
 //     to 128 at 13x13, 26x26 and 52x52, and 128 or 32 to 64 at 104x104).
@@ -797,26 +911,29 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 struct Plan {
   int dev, bf16, B, H, W, C, Cmid;
   int variant, splits, cs, ms_chunk, co_per_block;  // variant: the kernel's template argument
+  int flat, tiles, mrows;  // geometry: raster tiles (1) or 8x8 (0); tiles an image; mid rows
   size_t smem;
 };
 
-template <int NI>
+template <int N>
 struct F32Kernel {
-  static constexpr int VARIANT = NI, N2 = f32_n2(NI), MGRAN = FMGRAN, MSG = FK2, THREADS = NT;
-  static constexpr bool REPLICATE = false;
-  static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<NI>); }
-  static size_t smem(int, int, int ms_chunk) {
-    return ((size_t)HP * (ms_chunk + FMSKEW) + f32_region(NI)) * sizeof(float);
+  static constexpr int VARIANT = N, N2 = 2 * N, MGRAN = FMGRAN, MSG = FBK, THREADS = FNT;
+  static constexpr int ROWS1 = FBM1;  // conv1 rows a tile computes
+  static constexpr bool REPLICATE = true, FLAT = true;
+  static const void* fn() { return reinterpret_cast<const void*>(res_block_f32_kernel<N>); }
+  static size_t smem(int, int, int ms_chunk, int cs, int mrows) {
+    return f32_smem(N, ms_chunk, cs, mrows);
   }
 };
 
 template <int V>
 struct Bf16Kernel {
   static constexpr int VARIANT = V, N2 = 2 * V, MGRAN = BMGRAN, MSG = BMGRAN, THREADS = BNT;
-  static constexpr bool REPLICATE = true;
+  static constexpr int ROWS1 = HP;
+  static constexpr bool REPLICATE = true, FLAT = false;
   static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V>); }
   // + 1024: the ring's alignment; then the barriers and the biases in fp32
-  static size_t smem(int C, int Mpad, int) {
+  static size_t smem(int C, int Mpad, int, int, int) {
     return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(V) * sizeof(bf16) +
            2 * (BNS1 + BNS2) * sizeof(uint64_t) + (size_t)(Mpad + C) * sizeof(float);
   }
@@ -846,38 +963,44 @@ int split(Plan* best) {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (e != cudaSuccess) return (int)e;
-  const int B = best->B, C = best->C;
+  const int B = best->B, H = best->H, W = best->W, C = best->C;
   const int Mpad = ceil_div(best->Cmid, K::MGRAN) * K::MGRAN;
-  const int tiles = ceil_div(best->H, TH) * ceil_div(best->W, TW);
   const int chunks = ceil_div(C, K::N2), kchunks = Mpad / K::MSG;
   double best_cost = -1;
-  for (int s = 1; s <= MAX_CLUSTER && s <= chunks; ++s) {
-    const int per_block = ceil_div(chunks, s);
-    if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
-    for (int cs = K::REPLICATE ? 1 : s; cs <= s && cs <= kchunks; ++cs) {
-      if (s % cs != 0) continue;
-      const int ms_chunk = ceil_div(kchunks, cs) * K::MSG;
-      const size_t smem = K::smem(C, Mpad, ms_chunk);
-      if (smem > (size_t)max_smem) continue;
-      cudaLaunchAttribute attr[1];
-      const cudaLaunchConfig_t cfg =
-          cluster_config(dim3(tiles, s, B), cs, K::THREADS, smem, nullptr, attr);
-      int clusters = 0;
-      e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
-      if (e != cudaSuccess) return (int)e;
-      if (clusters < 1) continue;
-      const long all = (long)tiles * B * (s / cs);
-      const double waves = (double)((all + clusters - 1) / clusters);
-      const double cost = waves * ((double)HP * C * ms_chunk +
-                                   64.0 * 9 * Mpad * per_block * K::N2);
-      if (best_cost < 0 || cost < best_cost) {
-        best_cost = cost;
-        best->variant = K::VARIANT;
-        best->splits = s;
-        best->cs = cs;
-        best->ms_chunk = ms_chunk;
-        best->co_per_block = per_block * K::N2;
-        best->smem = smem;
+  for (int flat = 0; flat <= (K::FLAT && W <= FLAT_MAX_W ? 1 : 0); ++flat) {
+    const int tiles = flat ? ceil_div(H * W, TH * TW) : ceil_div(H, TH) * ceil_div(W, TW);
+    const int mrows = flat ? TH * TW + 2 * W + 2 : HP;
+    for (int s = 1; s <= MAX_CLUSTER && s <= chunks; ++s) {
+      const int per_block = ceil_div(chunks, s);
+      if (ceil_div(chunks, per_block) != s) continue;  // the same split as a smaller s
+      for (int cs = K::REPLICATE ? 1 : s; cs <= s && cs <= kchunks; ++cs) {
+        if (s % cs != 0) continue;
+        const int ms_chunk = ceil_div(kchunks, cs) * K::MSG;
+        const size_t smem = K::smem(C, Mpad, ms_chunk, cs, mrows);
+        if (smem > (size_t)max_smem) continue;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            cluster_config(dim3(tiles, s, B), cs, K::THREADS, smem, nullptr, attr);
+        int clusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
+        if (e != cudaSuccess) return (int)e;
+        if (clusters < 1) continue;
+        const long all = (long)tiles * B * (s / cs);
+        const double waves = (double)((all + clusters - 1) / clusters);
+        const double cost = waves * ((double)K::ROWS1 * C * ms_chunk +
+                                     64.0 * 9 * Mpad * per_block * K::N2);
+        if (best_cost < 0 || cost < best_cost) {
+          best_cost = cost;
+          best->variant = K::VARIANT;
+          best->splits = s;
+          best->cs = cs;
+          best->ms_chunk = ms_chunk;
+          best->co_per_block = per_block * K::N2;
+          best->flat = flat;
+          best->tiles = tiles;
+          best->mrows = mrows;
+          best->smem = smem;
+        }
       }
     }
   }
@@ -892,7 +1015,7 @@ int n_plans = 0;
 int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cmid <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  if (bf16 && C % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows of y
+  if (C % (bf16 ? 8 : 4) != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows of y
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -905,10 +1028,10 @@ int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
       return 0;
     }
   }
-  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0};
+  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   int rc;
   if (!bf16)
-    rc = C >= 512 ? split<F32Kernel<4>>(&plan) : split<F32Kernel<2>>(&plan);
+    rc = C <= 64 ? split<F32Kernel<32>>(&plan) : split<F32Kernel<64>>(&plan);
   else
     rc = C < 128 ? split<Bf16Kernel<32>>(&plan)
          : C < 256 ? split<Bf16Kernel<64>>(&plan) : split<Bf16Kernel<128>>(&plan);
@@ -925,27 +1048,58 @@ extern "C" {
 // Each returns the launch's cudaError_t (0 on success).  All pointers are
 // device pointers to contiguous arrays; the kernel runs on `stream` and does
 // not synchronise.  The weights are the host layouts described at each
-// kernel (f32: split, padded, K-major; bf16: padded, K-major); a refused
-// cluster launch returns its error (there is no other path).
-int yolo_fused_res_block_f32(const void* y, const void* w1s, const void* b1,
-                             const void* w2s, const void* b2, void* out, int B,
-                             int H, int W, int C, int Cmid, void* stream) {
+// kernel (f32: hi and lo planes, padded, K-major; bf16: padded, K-major); a
+// refused cluster launch returns its error (there is no other path).
+// yolo_fused_res_block_f32_kpart takes the steps of K = 32 a partial sum
+// spans (yolo_fused_res_block_f32: FKPART).
+int yolo_fused_res_block_f32_kpart(const void* y, const void* w1p, const void* b1,
+                                   const void* w2p, const void* b2, void* out, int B, int H,
+                                   int W, int C, int Cmid, int kpart, void* stream) {
+  if (kpart < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
-  const int e = get_plan(0, B, H, W, C, Cmid, &plan);
+  int e = get_plan(0, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
-  const int Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN, Cp = ceil_div(C, FK1) * FK1;
-  const int tiles_w = ceil_div(W, TW);
+  const int N = plan.variant, Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN;
+  const int Cp = ceil_div(C, FBK) * FBK, K2 = 9 * Mpad;
+  // y: flat [B][H*W][C], FBK channels x 128 pixels; 8x8 [B][H][W][C], FBK
+  // channels x the 10 x 10 window.  w1p [2][Mpad][Cp]: FBK x N x 2; w2p
+  // [2][C][K2]: FBK x 2N x 2.
+  const cuuint64_t row = (cuuint64_t)C * sizeof(float);
+  const cuuint64_t y_dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t y_strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t y_box[4] = {FBK, HWIN, TH + 2, 1};
+  const cuuint64_t flat_dims[3] = {(cuuint64_t)C, (cuuint64_t)H * W, (cuuint64_t)B};
+  const cuuint64_t flat_strides[2] = {row, row * W * H};
+  const cuuint32_t flat_box[3] = {FBK, FBM1, 1};
+  const cuuint64_t w1_dims[3] = {(cuuint64_t)Cp, (cuuint64_t)Mpad, 2};
+  const cuuint64_t w1_strides[2] = {Cp * 4ull, Cp * 4ull * Mpad};
+  const cuuint64_t w2_dims[3] = {(cuuint64_t)K2, (cuuint64_t)C, 2};
+  const cuuint64_t w2_strides[2] = {K2 * 4ull, K2 * 4ull * C};
+  const cuuint32_t w1_box[3] = {FBK, (cuuint32_t)N, 2}, w2_box[3] = {FBK, (cuuint32_t)(2 * N), 2};
+  CUtensorMap y_map, w1_map, w2_map;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if ((e = plan.flat ? tensor_map(&y_map, f32, y, 3, flat_dims, flat_strides, flat_box)
+                     : tensor_map(&y_map, f32, y, 4, y_dims, y_strides, y_box)) != 0 ||
+      (e = tensor_map(&w1_map, f32, w1p, 3, w1_dims, w1_strides, w1_box)) != 0 ||
+      (e = tensor_map(&w2_map, f32, w2p, 3, w2_dims, w2_strides, w2_box)) != 0)
+    return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(ceil_div(H, TH) * tiles_w, plan.splits, B), plan.cs, NT, plan.smem, stream, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(plan.tiles, plan.splits, B), plan.cs, FNT,
+                                                plan.smem, stream, attr);
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, plan.variant == 4 ? res_block_f32_kernel<4> : res_block_f32_kernel<2>,
-      static_cast<const float*>(y), static_cast<const float*>(w1s),
-      static_cast<const float*>(b1), static_cast<const float*>(w2s),
+      &cfg, N == 32 ? res_block_f32_kernel<32> : res_block_f32_kernel<64>, y_map, w1_map,
+      w2_map, static_cast<const float*>(y), static_cast<const float*>(b1),
       static_cast<const float*>(b2), static_cast<float*>(out), H, W, C, Cmid, Mpad, Cp,
-      plan.ms_chunk, tiles_w, plan.co_per_block);
+      plan.ms_chunk, plan.flat, ceil_div(W, TW), plan.mrows, plan.co_per_block, kpart);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
+}
+
+int yolo_fused_res_block_f32(const void* y, const void* w1p, const void* b1, const void* w2p,
+                             const void* b2, void* out, int B, int H, int W, int C, int Cmid,
+                             void* stream) {
+  return yolo_fused_res_block_f32_kpart(y, w1p, b1, w2p, b2, out, B, H, W, C, Cmid, FKPART,
+                                        stream);
 }
 
 int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
@@ -986,12 +1140,19 @@ int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
   return (int)cudaGetLastError();
 }
 
-// The cluster size the launch of this dtype (bf16: 1, fp32: 0) picks for
-// this shape on the current device (1: no split), or minus its cudaError_t.
-int yolo_fused_res_block_cluster(int bf16, int B, int H, int W, int C, int Cmid) {
+// The launch plan of this dtype for this shape on the current device, as 9
+// ints: variant (N or V channels a warpgroup), splits, cluster size, flat
+// (1: raster tiles; 0: 8x8), tiles an image, mid rows a tile, mid channels a
+// block, output channels a block, shared bytes; returns 0 or the
+// cudaError_t.
+int yolo_fused_res_block_plan(int bf16, int B, int H, int W, int C, int Cmid, int* out) {
   Plan plan;
   const int e = get_plan(bf16, B, H, W, C, Cmid, &plan);
-  return e != 0 ? -e : plan.cs;
+  if (e != 0) return e;
+  const int v[9] = {plan.variant, plan.splits, plan.cs, plan.flat, plan.tiles,
+                    plan.mrows, plan.ms_chunk, plan.co_per_block, (int)plan.smem};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* yolo_cuda_error_string(int code) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the package's wgmma kernels
 // (fused_res_block.cu, conv_p2d.cu, fused_entry.cu): mbarrier rings, TMA
 // tile loads, warpgroup register budgets, wgmma with its shared-memory
-// descriptors and fences, cp.async, and the host's tensor-map encoding.
+// descriptors and fences, and the host's tensor-map encoding.
 // Each .cu file includes it once; everything here is internal to that
 // file's library.
 
@@ -18,27 +18,6 @@ namespace {
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// cp.async
-// ---------------------------------------------------------------------------
-
-// Copy 16 bytes global -> shared, of which the first `bytes` (0..16) are
-// read and the rest zero-filled; lands after a later cp_async_wait.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most `pending` committed groups are still in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
 }
 
 // ---------------------------------------------------------------------------

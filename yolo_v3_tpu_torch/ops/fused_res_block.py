@@ -15,12 +15,14 @@ for a CUDA tensor and uses the plain version :func:`fused_res_block_ref` for a
 CPU tensor, because there is no kernel to run there.
 
 The fp32 kernel takes each product as three TF32 products (3xTF32: lo*hi +
-hi*lo + hi*hi, fp32 accumulation).  Its weights come split by
-:func:`split_tf32`, zero-padded, K-major and interleaved
-(:func:`tf32_weights`, made once and cached on the weight tensor); it splits
-the activations itself, the same way.  The bf16 kernel takes its weights
-K-major and zero-padded (:func:`bf16_weights`, cached the same way), so
-either dtype holds a second copy of the residual-block weights on the card.
+hi*lo + hi*hi, fp32 accumulation, in partial sums of ``F32_KPART`` steps of
+32 K added in plain fp32).  Its weights come split by :func:`split_tf32`
+into hi and lo planes, zero-padded and K-major (:func:`tf32_weights`, made
+once and cached on the weight tensor); it splits the activations itself,
+the same way.  The bf16 kernel takes its weights K-major and zero-padded
+(:func:`bf16_weights`, cached the same way), so either dtype holds a second
+copy of the residual-block weights on the card.  :func:`plan` reports the
+tile geometry, split and cluster the kernel picks for a shape.
 """
 
 from __future__ import annotations
@@ -37,9 +39,12 @@ from yolo_v3_tpu_torch.utils.precision import full_fp32
 LEAKY_SLOPE = 0.1
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the fp32 kernel's padding of its weight operands (FK1 and FMGRAN in the source)
+# the fp32 kernel's padding of its weight operands (FBK and FMGRAN in the
+# source: K per step, and the mid channels of one chunk of conv2's K)
 _F32_K1 = 32
 _F32_MGRAN = 32
+# steps of K = 32 a partial sum spans (FKPART in the source)
+F32_KPART = 1
 # the bf16 kernel's: K per pipeline step (BK) and the mid padding (BMGRAN)
 _BF16_K = 64
 _BF16_MGRAN = 16
@@ -105,15 +110,6 @@ def split_tf32(x: torch.Tensor):
     return hi, rna(x.float() - hi)
 
 
-def _interleave(wk: torch.Tensor) -> torch.Tensor:
-    """K-major [N, K] (K a multiple of 8) -> [N, 2K]: per group of 8 K and
-    per column q < 4, hi(q), lo(q), hi(q + 4), lo(q + 4), the four values
-    one lane's 16-byte load gives the mma's B fragment in 3xTF32."""
-    n, k = wk.shape
-    parts = torch.stack(split_tf32(wk), dim=-1)            # [N, K, 2]
-    return parts.reshape(n, k // 8, 2, 4, 2).transpose(2, 3).reshape(n, 2 * k)
-
-
 def _pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -140,16 +136,21 @@ def _tf32_layout(w1, w2):
     w1t[:cmid, :c] = w1.reshape(c, cmid).t()
     w2t = w2.new_zeros(c, 9, mpad, dtype=torch.float32)
     w2t[:, :, :cmid] = w2.reshape(9, cmid, c).permute(2, 0, 1)
-    return _interleave(w1t), _interleave(w2t.reshape(c * 9, mpad))
+    # [co, chunk, tap, 32 mid channels]: K chunk-major, as conv2 steps through it
+    w2k = w2t.reshape(c, 9, mpad // _F32_MGRAN, _F32_MGRAN).permute(0, 2, 1, 3)
+    return (torch.stack(split_tf32(w1t)),
+            torch.stack(split_tf32(w2k.reshape(c, 9 * mpad))))
 
 
 def tf32_weights(w1: torch.Tensor, w2: torch.Tensor):
     """The fp32 kernel's weight operands: ``w1`` [C, Cmid] and ``w2`` [3, 3,
-    Cmid, C] laid out K-major, zero-padded, split by :func:`split_tf32` and
-    interleaved (:func:`_interleave`): w1s [Mpad, 2 * Cp] and w2s [C, 9,
-    2 * Mpad], Mpad = Cmid rounded up to 32, Cp = C rounded up to 32.  Made
-    once and cached on ``w1`` until either weight moves or is written in
-    place."""
+    Cmid, C] split by :func:`split_tf32` into hi and lo planes, K-major and
+    zero-padded: w1p [2, Mpad, Cp] (plane, mid channel m, input channel k:
+    ``w1[k, m]``) and w2p [2, C, 9 * Mpad] (plane, output channel co, then K
+    chunk-major: column ``(kc * 9 + t) * 32 + j`` holds ``w2[t // 3, t % 3,
+    kc * 32 + j, co]``), Mpad = Cmid rounded up to 32, Cp = C rounded up to
+    32.  Made once and cached on ``w1`` until either weight moves or is
+    written in place."""
     return _cached_layout(w1, w2, "_tf32_weights", _tf32_layout)
 
 
@@ -178,17 +179,42 @@ def bf16_weights(w1: torch.Tensor, w2: torch.Tensor):
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """(the C function ``yolo_fused_res_block_<name>``, the error-string
-    function); "f32" and "bf16" launch, "cluster" plans."""
+    function); "f32", "f32_kpart" and "bf16" launch, "plan" plans."""
     lib = _build.load("fused_res_block")
     fn = getattr(lib, f"yolo_fused_res_block_{name}")
-    if name == "cluster":
-        fn.argtypes = [ctypes.c_int] * 6
+    if name == "plan":
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     else:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * (6 if name == "f32_kpart" else 5)
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.yolo_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib.yolo_cuda_error_string
+
+
+_PLAN_KEYS = ("variant", "splits", "cluster", "flat", "tiles", "mid_rows", "mid_per_block",
+              "co_per_block", "smem")
+
+
+def plan(b: int, h: int, w: int, c: int, cmid: int,
+         dtype: torch.dtype = torch.float32) -> dict:
+    """The launch plan of the ``dtype`` kernel for [b, h, w, c] with ``cmid``
+    mid channels on the current CUDA device: ``variant`` (channels a
+    warpgroup), ``splits`` (blocks a tile's output channels are split
+    over), ``cluster``, ``geometry`` ("flat": 64 pixels in raster order;
+    "8x8"), ``tiles`` an image, ``mid_rows`` a tile, ``mid_per_block`` and
+    ``co_per_block`` (mid and output channels of a block), ``smem`` (shared
+    bytes a block)."""
+    fn, err_str = _kernel("plan")
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = fn(int(dtype == torch.bfloat16), b, h, w, c, cmid, out)
+    if rc != 0:
+        raise RuntimeError(f"fused_res_block: no {_KERNEL_DTYPES[dtype]} launch for "
+                           f"{(b, h, w, c, cmid)}: {err_str(rc).decode()}")
+    got = dict(zip(_PLAN_KEYS, out))
+    got["geometry"] = "flat" if got.pop("flat") else "8x8"
+    return got
 
 
 def cluster_size(b: int, h: int, w: int, c: int, cmid: int,
@@ -196,25 +222,26 @@ def cluster_size(b: int, h: int, w: int, c: int, cmid: int,
     """The thread-block cluster the ``dtype`` kernel launches for [b, h, w, c]
     with ``cmid`` mid channels on the current CUDA device: the number of
     blocks of one tile that split its conv1 between them (1: none)."""
-    fn, err_str = _kernel("cluster")
-    cs = fn(int(dtype == torch.bfloat16), b, h, w, c, cmid)
-    if cs < 0:
-        raise RuntimeError(f"fused_res_block: no {_KERNEL_DTYPES[dtype]} launch for "
-                           f"{(b, h, w, c, cmid)}: {err_str(-cs).decode()}")
-    return cs
+    return plan(b, h, w, c, cmid, dtype)["cluster"]
 
 
 def fused_res_block(y, w1, b1, w2, b2):
     """Fused residual block on [B, H, W, C].
 
     A CUDA ``y`` runs the hand-written kernel (every operand on the same
-    card, one dtype, float32 or bfloat16, contiguous; bf16 needs C % 8 == 0)
-    or raises; a CPU ``y``
+    card, one dtype, float32 or bfloat16, contiguous; y 16-byte aligned with
+    C % 4 == 0 in float32, C % 8 == 0 in bfloat16) or raises; a CPU ``y``
     runs :func:`fused_res_block_ref`.  ``fused_res_block.launches`` counts
     kernel launches.
     """
     if y.device.type == "cpu":
         return fused_res_block_ref(y, w1, b1, w2, b2)
+    return _launch(y, w1, b1, w2, b2)
+
+
+def _launch(y, w1, b1, w2, b2, kpart=None):
+    """The kernel on CUDA operands; ``kpart`` (fp32 only) sets the steps of
+    K = 32 a partial sum spans (default ``F32_KPART``)."""
     if y.device.type != "cuda":
         raise ValueError(f"fused_res_block: unsupported device {y.device}")
     w1_arg, w1 = w1, _check_shapes(y, w1, b1, w2, b2)
@@ -227,17 +254,22 @@ def fused_res_block(y, w1, b1, w2, b2):
             f"bfloat16; got {[t.dtype for t in operands]}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("fused_res_block: operands must be contiguous")
-    if y.dtype == torch.bfloat16 and (y.shape[3] % 8 or y.data_ptr() % 16):
-        raise ValueError("fused_res_block: the bf16 kernel reads y in 16-byte rows: "
-                         f"C must be a multiple of 8 (got {y.shape[3]}) and y 16-byte aligned")
+    if y.shape[3] * y.element_size() % 16 or y.data_ptr() % 16:
+        raise ValueError("fused_res_block: the kernel reads y in 16-byte rows: C must be a "
+                         f"multiple of {16 // y.element_size()} (got {y.shape[3]}) and y "
+                         "16-byte aligned")
+    if kpart is not None and (y.dtype != torch.float32 or kpart < 1):
+        raise ValueError(f"fused_res_block: kpart {kpart} (fp32 only, >= 1)")
     b, h, w, c = y.shape
     cmid = w1.shape[1]
     out = torch.empty_like(y)
-    fn, err_str = _kernel(_KERNEL_DTYPES[y.dtype])
+    name = _KERNEL_DTYPES[y.dtype] + ("_kpart" if kpart is not None else "")
+    fn, err_str = _kernel(name)
     w1, w2 = (tf32_weights if y.dtype == torch.float32 else bf16_weights)(w1_arg, w2)
     ptrs = (y, w1, b1, w2, b2, out)
     with torch.cuda.device(y.device):
         rc = fn(*[t.data_ptr() for t in ptrs], b, h, w, c, cmid,
+                *(() if kpart is None else (kpart,)),
                 torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -14,6 +14,12 @@ the whole batch's rows.
 
 Output rows per image: [cls, x, y, w, h, prob, obj], xywh in original-image
 pixels.
+
+Under a recording ``torch.profiler`` a call marks its stages as spans
+(``utils/profiling.py::span``): ``yolo.detect`` holds ``yolo.preprocess``,
+``yolo.forward``, ``yolo.postprocess`` and ``yolo.readback``; ``yolo.h2d``
+marks each blocking host-to-device copy and ``yolo.nms.round`` each NMS
+round.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from yolo_v3_tpu_torch.parallel import mesh as M
 from yolo_v3_tpu_torch.parallel.halo import gather_batch
 from yolo_v3_tpu_torch.parallel.mesh import STRIPE_ROWS
 from yolo_v3_tpu_torch.utils.config import YoloConfig
+from yolo_v3_tpu_torch.utils.profiling import span
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -71,15 +78,17 @@ def detect_fn(
     """
     space = mesh is not None and mesh.space_size > 1
     xa = x if x.dtype == torch.uint8 else x.to(compute_dtype)
-    raws = model(xa, plain=plain, mesh=mesh) if space else model(xa, plain=plain)
+    with span("forward"):
+        raws = model(xa, plain=plain, mesh=mesh) if space else model(xa, plain=plain)
     # the gathered heads are whole: the coarse one has a row per 32 input rows
     img_dim = raws[0].shape[1] * STRIPE_ROWS if space else x.shape[1]
-    res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
-                                nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms)
-    org = org_dims.to(torch.float32)
-    xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
-                                img_dim, img_dim, is_letterbox=is_letterbox)
-    out = torch.cat([xywh, res[..., 4:]], dim=-1)
+    with span("postprocess"):
+        res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
+                                    nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms)
+        org = org_dims.to(torch.float32)
+        xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
+                                    img_dim, img_dim, is_letterbox=is_letterbox)
+        out = torch.cat([xywh, res[..., 4:]], dim=-1)
     return gather_batch(out, mesh) if mesh is not None else out
 
 
@@ -204,31 +213,35 @@ class Detector:
         uint8 for the uint8 feed; org_dims [B, 2]), both on the detector's
         device.  Letterbox or plain cubic resize per ``letterbox``, on the
         device or on the host (OpenCV) per ``resize_on_device``."""
-        dim = dim or self.config.img_dim
-        org = torch.tensor([[im.shape[1], im.shape[0]] for im in images],
-                           dtype=torch.float32, device=self.device)
+        with span("preprocess"):
+            dim = dim or self.config.img_dim
+            with span("h2d"):
+                org = torch.tensor([[im.shape[1], im.shape[0]] for im in images],
+                                   dtype=torch.float32, device=self.device)
 
-        def on_device(im):
-            return torch.from_numpy(np.ascontiguousarray(im)).to(self.device)
+            def on_device(im):
+                with span("h2d"):
+                    return torch.from_numpy(np.ascontiguousarray(im)).to(self.device)
 
-        if self.resize_on_device:
+            if self.resize_on_device:
+                if self.letterbox:
+                    batch = [letterbox_device(on_device(im), (dim, dim)) for im in images]
+                else:
+                    batch = [resize_cubic_device(on_device(im).float() / 255.0, dim, dim)
+                             .clamp(0.0, 1.0) for im in images]
+                return torch.stack(batch), org
             if self.letterbox:
-                batch = [letterbox_device(on_device(im), (dim, dim)) for im in images]
+                host = letterbox_host_u8 if self._u8_feed else letterbox_host
+                batch = np.stack([host(im, (dim, dim)) for im in images])
             else:
-                batch = [resize_cubic_device(on_device(im).float() / 255.0, dim, dim)
-                         .clamp(0.0, 1.0) for im in images]
-            return torch.stack(batch), org
-        if self.letterbox:
-            host = letterbox_host_u8 if self._u8_feed else letterbox_host
-            batch = np.stack([host(im, (dim, dim)) for im in images])
-        else:
-            import cv2
+                import cv2
 
-            batch = np.stack([cv2.resize(im, (dim, dim), interpolation=cv2.INTER_CUBIC)
-                              for im in images])
-            if not self._u8_feed:
-                batch = batch.astype(np.float32) / 255.0
-        return torch.from_numpy(batch).to(self.device), org
+                batch = np.stack([cv2.resize(im, (dim, dim), interpolation=cv2.INTER_CUBIC)
+                                  for im in images])
+                if not self._u8_feed:
+                    batch = batch.astype(np.float32) / 255.0
+            with span("h2d"):
+                return torch.from_numpy(batch).to(self.device), org
 
     @torch.inference_mode()
     def detect(
@@ -249,17 +262,19 @@ class Detector:
         (``config.eval_conf_thr`` / ``eval_nms_thr``) by default.  ``plain``
         runs the kernels' plain PyTorch versions instead of the kernels.
         """
-        if conf_thr is None:
-            conf_thr = self.config.eval_conf_thr if is_eval else self.config.conf_thr
-        if nms_thr is None:
-            nms_thr = self.config.eval_nms_thr if is_eval else self.config.nms_thr
-        if self.mesh is not None:
-            images = M.data_shard(self.mesh, images)
-        x, org = self.preprocess(images, dim)
-        if self.mesh is not None:
-            x = M.stripe(self.mesh, x, 1).contiguous()
-        res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
-                        is_eval=is_eval, use_nms=use_nms, is_letterbox=self.letterbox,
-                        compute_dtype=self.compute_dtype, plain=plain, mesh=self.mesh)
-        # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
-        return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]
+        with span("detect"):
+            if conf_thr is None:
+                conf_thr = self.config.eval_conf_thr if is_eval else self.config.conf_thr
+            if nms_thr is None:
+                nms_thr = self.config.eval_nms_thr if is_eval else self.config.nms_thr
+            if self.mesh is not None:
+                images = M.data_shard(self.mesh, images)
+            x, org = self.preprocess(images, dim)
+            if self.mesh is not None:
+                x = M.stripe(self.mesh, x, 1).contiguous()
+            res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
+                            is_eval=is_eval, use_nms=use_nms, is_letterbox=self.letterbox,
+                            compute_dtype=self.compute_dtype, plain=plain, mesh=self.mesh)
+            with span("readback"):
+                # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
+                return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from yolo_v3_tpu_torch.utils.profiling import span
+
 
 class CoordinateType:
     """Pixel-space vs. normalized coordinates."""
@@ -179,10 +181,14 @@ def _clip(v, hi):
 
 def _letterbox_geometry(like, org_w, org_h, new_w, new_h):
     """(ratio, resized w, resized h, x pad, y pad) as float32 tensors on
-    ``like``'s device, floored as the reference does."""
-    org_w, org_h, new_w_, new_h_ = (
-        torch.as_tensor(v, dtype=torch.float32, device=like.device)
-        for v in (org_w, org_h, new_w, new_h))
+    ``like``'s device, floored as the reference does.  The new size is a
+    number: on a card each of its two values is a blocking copy."""
+    org_w, org_h = (torch.as_tensor(v, dtype=torch.float32, device=like.device)
+                    for v in (org_w, org_h))
+    with span("h2d"):
+        new_w_ = torch.as_tensor(new_w, dtype=torch.float32, device=like.device)
+    with span("h2d"):
+        new_h_ = torch.as_tensor(new_h, dtype=torch.float32, device=like.device)
     # tensor / tensor: ``int / tensor`` multiplies by a rounded reciprocal,
     # which can move the floor below by one pixel
     ratio = torch.minimum(new_w_ / org_w, new_h_ / org_h)

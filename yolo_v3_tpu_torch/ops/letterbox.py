@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from yolo_v3_tpu_torch.ops.boxes import letterbox_params
+from yolo_v3_tpu_torch.utils.profiling import span
 
 PAD_VALUE = 128.0 / 255.0
 
@@ -50,7 +51,9 @@ def _cubic_weight_matrix(src_len: int, dst_len: int, a: float = -0.75) -> np.nda
 @functools.lru_cache(maxsize=256)
 def _cubic_weights_on(src_len: int, dst_len: int, device: torch.device) -> torch.Tensor:
     """:func:`_cubic_weight_matrix` as a tensor on ``device``, uploaded once."""
-    return torch.from_numpy(_cubic_weight_matrix(src_len, dst_len)).to(device)
+    host = _cubic_weight_matrix(src_len, dst_len)
+    with span("h2d"):
+        return torch.from_numpy(host).to(device)
 
 
 def resize_cubic_device(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

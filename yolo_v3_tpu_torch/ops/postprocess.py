@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import boxes as B
+from yolo_v3_tpu_torch.utils.profiling import span
 
 # Larger than any supported input dimension (608) so class-offset boxes of
 # distinct classes can never intersect.
@@ -103,12 +104,14 @@ def _topk_pairs_eval(probs: torch.Tensor, k: int):
 
 def _fixpoint(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Greedy NMS as the fixpoint of ``keep[i] = valid[i] and no kept j with
-    overlap[j, i]``, iterated from all-kept (at most K rounds)."""
+    overlap[j, i]``, iterated from all-kept (at most K rounds).  Each round
+    ends in a host sync (``torch.equal``) and is a ``yolo.nms.round`` span."""
     keep = valid
     for _ in range(valid.shape[-1]):
-        suppressed = (overlap & keep[..., :, None]).any(dim=-2)
-        new_keep = valid & ~suppressed
-        done = torch.equal(new_keep, keep)
+        with span("nms.round"):
+            suppressed = (overlap & keep[..., :, None]).any(dim=-2)
+            new_keep = valid & ~suppressed
+            done = torch.equal(new_keep, keep)
         keep = new_keep
         if done:
             break
@@ -325,8 +328,12 @@ def _scale_constants(shapes, anchor_masks, anchors, img_dim, device=None):
             anchor = np.asarray([anchors[i][j] for i in mask], np.float32)
             out.append(np.tile(anchor[None, None, :], (h, w, 1)).ravel())
         strides.append(np.full(h * w * a, img_dim / h, np.float32))
-    return tuple(torch.from_numpy(np.concatenate(v)).to(device)
-                 for v in (cxs, cys, aws, ahs, strides))
+    consts = []
+    for v in (cxs, cys, aws, ahs, strides):
+        host = np.concatenate(v)
+        with span("h2d"):
+            consts.append(torch.from_numpy(host).to(device))
+    return tuple(consts)
 
 
 def _constants_from_index(gi, shapes, anchor_masks, anchors, img_dim, n_a):
@@ -384,10 +391,12 @@ def _postprocess_fast_display(raws, config, img_dim, conf_thr, nms_thr,
         b, h, w, _ = raw.shape
         stride = img_dim / h
         dev = raw.device
-        aw_c = torch.tensor([config.anchors[i][0] for i in mask],
-                            dtype=torch.float32, device=dev)
-        ah_c = torch.tensor([config.anchors[i][1] for i in mask],
-                            dtype=torch.float32, device=dev)
+        with span("h2d"):
+            aw_c = torch.tensor([config.anchors[i][0] for i in mask],
+                                dtype=torch.float32, device=dev)
+        with span("h2d"):
+            ah_c = torch.tensor([config.anchors[i][1] for i in mask],
+                                dtype=torch.float32, device=dev)
         rows_all = raw.reshape(b, h * w * A, attrib)   # rows in (h, w, a) order
         o = rows_all[..., 4].float()
         cmx = rows_all[..., 5:].float().amax(dim=-1)

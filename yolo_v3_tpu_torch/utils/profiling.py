@@ -9,6 +9,9 @@ times with the host clock instead, because the caller asked for it.
 host readback, which its TPU tunnel needed; the port has no such case.)
 :func:`trace` records a ``torch.profiler`` trace of the card and the host
 and writes it as a Chrome trace; it raises where the profiler fails.
+:func:`span` marks a stage of the serving path (``yolo.<name>``) in any
+``torch.profiler`` trace that is being recorded, and costs one check
+otherwise.
 
 The JAX file's ``enable_compilation_cache`` has no counterpart: the kernels
 are built once into a hash-keyed directory (``ops/_build.py``), which plays
@@ -24,6 +27,25 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+SPAN_PREFIX = "yolo."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span ``yolo.<name>`` while a ``torch.profiler``
+    records on this thread (:func:`trace`, or any other), else one shared
+    null context.
+
+    The spans of ``Detector.detect`` land in the profiler's trace beside the
+    card's kernels and the runtime calls, on the same clock; a call's spans
+    nest inside its ``yolo.detect``.  ``record_function`` costs microseconds
+    even with no profiler, hence the check first.
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF
 
 
 def sync(tree=None, device=None) -> None:
@@ -111,7 +133,17 @@ def trace(logdir: str):
     """Profile the block on the host and the card (``torch.profiler``) and
     write a Chrome trace to ``logdir/trace.json``; yields the profiler (its
     ``key_averages()`` sums the time by kernel).  Raises where the profiler
-    fails."""
+    fails.
+
+    ``Detector.detect`` marks its stages in the trace (:func:`span`; Chrome
+    events of category ``user_annotation``): ``yolo.detect`` around a call,
+    holding ``yolo.preprocess``, ``yolo.forward``, ``yolo.postprocess`` and
+    ``yolo.readback`` in turn; ``yolo.h2d`` around each blocking
+    host-to-card copy and ``yolo.nms.round`` around each NMS round, which
+    ends in a host sync.  The card is idle in a stage where no kernel, copy
+    or fill (categories ``kernel``, ``gpu_memcpy``, ``gpu_memset``) overlaps
+    the stage's span.
+    """
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)

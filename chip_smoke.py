@@ -6,9 +6,10 @@ paths once on one NVIDIA GPU.
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``,
-   one nvcc per source, all started together; print each kernel's ptxas
-   report (registers, spills) and, for the three ``wgmma`` sources, fail on
+2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``
+   (the batched letterbox, ``letterbox.cu``, too), one nvcc per source, all
+   started together; print each kernel's ptxas report (registers, spills)
+   and, for the three ``wgmma`` sources, fail on
    a ``C75xx`` warning (``fused_res_block``: other than C7519, the
    ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``), on
    SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every ``HGMMA``
@@ -36,9 +37,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
    images of assorted sizes in bf16, fp32 and int8 (calibrated on the same
    8 images), each path's launch counts set to 0 just before its run and
-   read just after, and its outputs checked against the plain path;
+   read just after (the batched letterbox, ``csrc/letterbox.cu``, once a
+   detect), and its outputs checked against the plain path, which shares
+   the preprocess; so the letterbox kernel is held on its own against its
+   plain version (``letterbox_batch_ref``) on the same card operands, at
+   these 8 images and at 32 of COCO val's six sizes (the benchmark's), both
+   geometries, within 2e-6;
 5. timing: e2e ``detect`` images/sec at batch 8, forward ms and the
-   preprocess / forward / postprocess split, per precision;
+   preprocess / forward / postprocess split, per precision; the letterbox
+   kernel at the 32 images at 416 (CUDA-graph replay) beside its plain
+   version and its bound (bytes);
 6. serving options, on the same seed-0 model: (a) the int8 uint8 feed,
    ``detect_fn`` on a seeded uint8 batch already 416 x 416 (the card's host
    has no OpenCV for the host letterbox) with phase 4's calibrated tree,
@@ -117,7 +125,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (2, 1) checkpoint refused under a 1-rank mesh, ms per net-batch
    (information); (d) ``StepTimer`` (CUDA events) around 5 detects after 2
    in int8 and bf16 beside phase 5's e2e, and ``trace()`` around one int8
-   detect, whose Chrome trace names ``fused_entry`` and ``conv_p2d``.
+   detect, bare and then behind 64 spinning kernels and a synchronize:
+   the second trace holds every kernel of the detect
+   (``letterbox_kernel``, ``fused_entry``, the 67 ``conv_p2d``); the kernel
+   events each window recorded, and its launches without one, are printed.
 10. the mesh, 2 gloo ranks sharing the card (this script with
    ``--space-worker``): ``Detector(mesh=(2, 1))`` on phase 4's 8 images in
    bf16, fp32 and int8, ``Detector(mesh=(1, 2))`` on stripes of 224 / 192
@@ -154,10 +165,12 @@ DARKNET53_BLOCKS = (1, 2, 8, 8, 4)
 RES_SHAPES_416 = ((208, 64), (104, 128), (52, 256), (26, 512), (13, 1024))
 BATCH = 8
 IMAGE_HW = ((480, 640), (375, 500), (416, 416), (300, 700))
+# (w, h) of COCO val's six common sizes: the benchmark's scenes
+COCO_WH = ((640, 480), (480, 640), (640, 427), (500, 375), (640, 360), (427, 640))
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),      # summation order
        torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}  # 2 bf16 ulps
 NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-SOURCES = ("fused_res_block", "conv_p2d", "fused_entry")
+SOURCES = ("fused_res_block", "conv_p2d", "fused_entry", "letterbox")
 # the sources whose kernels run wgmma, and the ptxas warnings each may carry
 # (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
 # registers, which fused_res_block's bf16 conv2 and both fp32 convs have;
@@ -804,6 +817,7 @@ def main_path(card, weights_path, imgs, e2e):
     from yolo_v3_tpu_torch.models import weights as W
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+    from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
     from yolo_v3_tpu_torch.ops.postprocess import postprocess_from_raws
     from yolo_v3_tpu_torch.utils.config import YoloConfig
 
@@ -823,6 +837,7 @@ def main_path(card, weights_path, imgs, e2e):
                     "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
         for fn in counters.values():
             fn.launches = 0
+        letterbox_batch.launches = 0
         rows = det.detect(imgs)
         torch.cuda.synchronize()
         launches[dtype] = {k: fn.launches for k, fn in counters.items()}
@@ -832,6 +847,9 @@ def main_path(card, weights_path, imgs, e2e):
                      res_block_p2d=0))
         check(launches[dtype] == want,
               f"{precision} launches in one forward {launches[dtype]}, want {want}")
+        check(letterbox_batch.launches == 1,
+              f"{precision}: {letterbox_batch.launches} letterbox launches in one detect")
+        launches[dtype]["letterbox"] = letterbox_batch.launches
         check_rows(rows, imgs, config.num_classes)
         if dtype == torch.float32:
             fp32_rows = rows
@@ -861,9 +879,9 @@ def main_path(card, weights_path, imgs, e2e):
         if dtype == torch.float32:
             plain_rows = det.detect(imgs, plain=True)
             check(all(same_rows(a, b) for a, b in zip(rows, plain_rows)),
-                  "fp32 detections equal on kernel and plain paths")
-            log("main fp32: detection rows equal on kernel and plain paths "
-                f"(boxes atol 1e-2 px, probs atol 1e-4) | {card}")
+                  "fp32 detections equal on kernel and plain forward paths")
+            log("main fp32: detection rows equal on kernel and plain forward paths "
+                f"(boxes atol 1e-2 px, probs atol 1e-4; one preprocess) | {card}")
 
         # phase 5: timing after warm-up
         with torch.inference_mode():
@@ -887,6 +905,50 @@ def main_path(card, weights_path, imgs, e2e):
         del det
         torch.cuda.empty_cache()
     return launches, fp32_rows
+
+
+def letterbox_path(card, imgs, launches):
+    """Phases 4 and 5 for the batched letterbox (``csrc/letterbox.cu``),
+    which ``detect`` runs on its kernel and plain paths alike: the kernel
+    against ``letterbox_batch_ref`` on the same card operands, at phase 4's
+    images and at 32 of COCO val's six sizes, both geometries, within 2e-6;
+    its device ms at the 32 at 416 (CUDA-graph replay) beside the plain
+    version's and its bound (the packed bytes read once, the float32 output
+    written once).  ``launches``: the letterbox's launches in each main
+    path's detect.  Returns its entry of the ``kernels`` line."""
+    from yolo_v3_tpu_torch.ops import letterbox as L
+
+    dim = 416
+    rng = np.random.default_rng(7)
+    coco = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for w, h in (COCO_WH[i % len(COCO_WH)] for i in range(32))]
+    worst = 0.0
+    for what, batch in ((f"phase 4's {len(imgs)} images", imgs), ("32 of COCO's sizes", coco)):
+        for letterbox in (True, False):
+            src, desc, _ = L.stage_batch(batch, dim, letterbox, "cuda")
+            before = L.letterbox_batch.launches
+            got = L.letterbox_batch(src, desc, dim)
+            check(L.letterbox_batch.launches == before + 1, "letterbox: one launch a batch")
+            err = (got - L.letterbox_batch_ref(src, desc, dim)).abs().max().item()
+            geometry = "letterbox" if letterbox else "plain resize"
+            check(err <= 2e-6, f"letterbox kernel, {what}, {geometry}: max abs {err:.3e} "
+                  "against its plain version > 2e-6")
+            log(f"letterbox kernel vs plain, {what} at {dim}, {geometry}: max_abs_err="
+                f"{err:.3e} (<= 2e-6) | {card}")
+            worst = max(worst, err)
+    src, desc, _ = L.stage_batch(coco, dim, True, "cuda")
+    cdesc = desc.cpu()                  # the plain version reads its table on the host
+    ms = device_ms(lambda: L.letterbox_batch(src, desc, dim))
+    plain_ms = device_ms(lambda: L.letterbox_batch_ref(src, cdesc, dim))
+    nbytes = src.numel() + len(coco) * dim * dim * 3 * 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"time letterbox kernel, 32 of COCO's sizes at {dim}: ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} bound_ms={b_ms:.4f} (bytes: {nbytes}); launches a detect "
+        f"{launches} | {card}")
+    return dict(name="letterbox", route="cuda", source="yolo_v3_tpu_torch/csrc/letterbox.cu",
+                replaces=None, launches=launches["bf16"], launches_by_path=launches,
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by="bytes")
 
 
 def iou_xywh(a, b):
@@ -922,6 +984,7 @@ def int8_path(card, weights_path, imgs, fp32_rows, e2e):
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.ops import entry_kernel as EK
     from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
     from yolo_v3_tpu_torch.ops.postprocess import postprocess_from_raws
     from yolo_v3_tpu_torch.utils.config import YoloConfig
 
@@ -939,11 +1002,15 @@ def int8_path(card, weights_path, imgs, fp32_rows, e2e):
                 "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
     for fn in counters.values():
         fn.launches = 0
+    letterbox_batch.launches = 0
     rows = det.detect(imgs)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     check(launches == INT8_LAUNCHES,
           f"int8 launches in one forward {launches}, want {INT8_LAUNCHES}")
+    check(letterbox_batch.launches == 1,
+          f"int8: {letterbox_batch.launches} letterbox launches in one detect")
+    launches["letterbox"] = letterbox_batch.launches
     check_rows(rows, imgs, config.num_classes)
     log(f"main int8: detect(8 images) ok, launches {launches}, detections per "
         f"image={[len(r) for r in rows]} | {card}")
@@ -962,8 +1029,9 @@ def int8_path(card, weights_path, imgs, fp32_rows, e2e):
             f"max|head|={h.float().abs().max().item():.3e} | {card}")
     plain_rows = det.detect(imgs, plain=True)
     check(all(same_rows(a, b, 0.0, 0.0) for a, b in zip(rows, plain_rows)),
-          "int8 detections equal on kernel and plain paths")
-    log(f"main int8: detection rows equal on kernel and plain paths | {card}")
+          "int8 detections equal on kernel and plain forward paths")
+    log(f"main int8: detection rows equal on kernel and plain forward paths (one "
+        f"preprocess) | {card}")
     agree = [agreement(f, r) for f, r in zip(fp32_rows, rows)]
     log(f"main int8 vs fp32 (information, not a gate): share of fp32 detections "
         f"matched by an int8 one (same class, IoU > 0.5) per image="
@@ -2526,10 +2594,35 @@ def data_parallel(card, weights_path, work):
         f"(two at once) and {t2 - t1:.1f} s | {card}")
 
 
+def traced_kernels(path):
+    """Of a Chrome trace: the names of its kernel events, and the launches
+    it recorded on the host (CUDA runtime or driver calls) that have no
+    kernel event: their number, whether they are the window's first
+    launches, and the ms from the window's first launch to the last of
+    them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    seen = {e.get("args", {}).get("correlation") for e in kernels}
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")), key=lambda e: e["ts"])
+    lost = [i for i, e in enumerate(launches)
+            if e.get("args", {}).get("correlation") not in seen]
+    span_ms = (launches[lost[-1]]["ts"] - launches[0]["ts"]) / 1e3 if lost else 0.0
+    return [e["name"] for e in kernels], len(lost), lost == list(range(len(lost))), span_ms
+
+
 def profiling(card, weights_path, imgs, work, e2e_ms):
     """(d) StepTimer with CUDA events around 5 detects after 2, beside phase
-    5's e2e; trace() around one int8 detect names the int8 kernels."""
+    5's e2e; trace() around one int8 detect, bare and then behind 64
+    spinning kernels and a synchronize (a profiler window of this
+    long-lived process has lost the kernel events of its first launches,
+    whichever kernels they are: the same number of them bare as behind 16
+    spinning kernels of 8 ms in all, which were all lost), names every
+    kernel of the detect; each window's lost launches are printed."""
     from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.ops.entry_kernel import fused_entry
+    from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
     from yolo_v3_tpu_torch.utils.config import YoloConfig
     from yolo_v3_tpu_torch.utils.profiling import StepTimer, trace
 
@@ -2550,20 +2643,40 @@ def profiling(card, weights_path, imgs, work, e2e_ms):
             f"{s['items_per_sec']:.2f} imgs/sec; phase 5 e2e {e2e_ms[precision]:.3f} ms "
             f"({BATCH * 1000 / e2e_ms[precision]:.2f} imgs/sec) | {card}")
         if precision == "int8":
-            logdir = os.path.join(work, "trace")
-            with trace(logdir) as prof:
-                det.detect(imgs)
-                torch.cuda.synchronize()
-            with open(os.path.join(logdir, "trace.json")) as f:
-                text = f.read()
-            found = {k: k in text for k in ("fused_entry", "conv_p2d")}
-            device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                            if e.device_type == torch.autograd.DeviceType.CUDA)
-            check(all(found.values()) and device_us > 0,
-                  f"trace: kernels named {found}, device time {device_us} us")
-            log(f"profiling trace() around one int8 detect: {len(text)} bytes of Chrome "
-                f"trace naming fused_entry and conv_p2d, device time {device_us / 1e3:.3f} ms "
-                f"| {card}")
+            # a detect's kernels: the letterbox, the entry and the p2d convs
+            # (the blocks' two convs included)
+            want = {"letterbox_kernel": 1, "fused_entry": 1,
+                    "conv_p2d": INT8_LAUNCHES["conv1x1_p2d"] + INT8_LAUNCHES["conv3x3_p2d"]}
+            n_spin = 64
+            for lead_in in (False, True):
+                logdir = os.path.join(work, f"trace_{'lead_in' if lead_in else 'bare'}")
+                before = fused_entry.launches, letterbox_batch.launches
+                with trace(logdir) as prof:
+                    if lead_in:
+                        for _ in range(n_spin):
+                            torch.cuda._sleep(2_000_000)        # ~1 ms each
+                        torch.cuda.synchronize()
+                    det.detect(imgs)
+                    torch.cuda.synchronize()
+                check((fused_entry.launches, letterbox_batch.launches)
+                      == (before[0] + 1, before[1] + 1),
+                      "trace: one fused_entry and one letterbox launch in one detect")
+                names, n_lost, first, lost_ms = traced_kernels(
+                    os.path.join(logdir, "trace.json"))
+                found = {k: sum(k in n for n in names) for k in want}
+                spun = sum("spin_kernel" in n for n in names)
+                device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.device_type == torch.autograd.DeviceType.CUDA)
+                window = (f"behind {n_spin} spinning kernels ({spun} of them in the trace)"
+                          if lead_in else "bare")
+                log(f"profiling trace() around one int8 detect, {window}: {len(names)} kernel "
+                    f"events, the detect's {found} (launched {want}); {n_lost} recorded launches "
+                    f"without a kernel event ({'the window' if first else 'not all the window'}"
+                    f"'s first, issued over {lost_ms:.3f} ms); device time "
+                    f"{device_us / 1e3:.3f} ms | {card}")
+            check(found == want and device_us > 0,
+                  f"trace behind the lead-in: kernels {found}, want {want}; device time "
+                  f"{device_us} us")
         del det
         torch.cuda.empty_cache()
 
@@ -3089,6 +3202,9 @@ def main():
         e2e = {}
         launches, fp32_rows = main_path(card, weights_path, imgs, e2e)
         launches_i8, qtree, x_i8 = int8_path(card, weights_path, imgs, fp32_rows, e2e)
+        letterbox_entry = letterbox_path(card, imgs, {
+            "bf16": launches[torch.bfloat16]["letterbox"],
+            "fp32": launches[torch.float32]["letterbox"], "int8": launches_i8["letterbox"]})
         options = serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8)
         train_summary = training_path(card, weights_path, imgs, work)
         t8 = time.perf_counter()
@@ -3140,6 +3256,7 @@ def main():
         entry["mesh_runs"] = {run: kernels_of[name] for run, kernels_of in mesh_launches.items()
                               if run.split("/")[1] in (precision, precision + "u8")}
     kernels += options
+    kernels.append(letterbox_entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ import torch
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
+from yolo_v3_tpu_torch.ops import letterbox as L
 from yolo_v3_tpu_torch.ops.fused_res_block import (
     cluster_size,
     fused_res_block,
@@ -815,3 +816,126 @@ def test_step_timer_times_the_card_with_cuda_events(dev):
     assert times[4] < min(times[1:4])
     s = timer.summary()
     assert s["steps"] == 4 and s["items_per_sec"] > 0
+
+
+# -- the batched letterbox (csrc/letterbox.cu) --------------------------------
+
+LB_COCO_WH = ((640, 480), (480, 640), (640, 427), (500, 375), (640, 360), (427, 640))
+LB_ODD_WH = ((37, 53), (1, 300), (300, 1), (2000, 20), (20, 2000), (80, 60), (417, 415),
+             (7, 3), (1281, 721))
+
+
+def _lb_images(sizes_wh, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for w, h in (sizes_wh[i % len(sizes_wh)] for i in range(n))]
+
+
+def _lb_plain(images, dim, letterbox):
+    return L.letterbox_batch_ref(*L.stage_batch(images, dim, letterbox, "cpu")[:2], dim)
+
+
+@pytest.mark.parametrize("letterbox", [True, False], ids=["letterbox", "resize"])
+@pytest.mark.parametrize("dim", [320, 416, 608])
+@pytest.mark.parametrize("sizes,n", [(LB_COCO_WH, 32), (LB_ODD_WH, 9)], ids=["coco32", "odd"])
+def test_letterbox_kernel_matches_plain(dev, sizes, n, dim, letterbox):
+    """The kernel against the plain version on the CPU: max abs <= 2e-6 (a
+    float32 summation order), the table and the sizes equal."""
+    images = _lb_images(sizes, n, seed=dim)
+    src, desc, org = L.stage_batch(images, dim, letterbox, dev)
+    before = L.letterbox_batch.launches
+    got = L.letterbox_batch(src, desc, dim)
+    assert L.letterbox_batch.launches == before + 1
+    csrc, cdesc, corg = L.stage_batch(images, dim, letterbox, "cpu")
+    want = L.letterbox_batch_ref(csrc, cdesc, dim)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= 2e-6
+    assert torch.equal(desc.cpu(), cdesc) and torch.equal(org.cpu(), corg)
+
+
+def test_letterbox_kernel_rejects_bad_operands(dev):
+    src, desc, _ = L.stage_batch(_lb_images(LB_COCO_WH, 2), 64, True, dev)
+    before = L.letterbox_batch.launches
+    with pytest.raises(TypeError, match="src"):
+        L.letterbox_batch(src.float(), desc, 64)
+    with pytest.raises(TypeError, match="desc"):
+        L.letterbox_batch(src, desc.int(), 64)
+    with pytest.raises(TypeError, match="desc"):
+        L.letterbox_batch(src, desc[:, :6].contiguous(), 64)
+    with pytest.raises(ValueError, match="one device"):
+        L.letterbox_batch(src, desc.cpu(), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        L.letterbox_batch(src[::2], desc, 64)
+    with pytest.raises(ValueError, match="dim"):
+        L.letterbox_batch(src, desc, 0)
+    with pytest.raises(ValueError, match="dim"):
+        L.letterbox_batch(src, desc, L.MAX_DIM + 1)
+    assert L.letterbox_batch.launches == before
+
+
+def test_letterbox_kernel_bad_descriptor_rows_give_nan(dev):
+    """A table row that does not fit the buffer or the output is not read:
+    that image comes out NaN, the others as the plain version."""
+    images = _lb_images(LB_COCO_WH, 3)
+    src, desc, _ = L.stage_batch(images, 96, True, dev)
+    bad = desc.clone()
+    bad[1, 0] = src.numel()          # past the end of the packed images
+    bad[2, 3] = 97                   # wider than the output
+    got = L.letterbox_batch(src, bad, 96).cpu()
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+    assert (got[0] - _lb_plain(images[:1], 96, True)[0]).abs().max().item() <= 2e-6
+
+
+@pytest.fixture(scope="module")
+def lb_det(dev):
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    params, state = D.init_yolonet(torch.Generator().manual_seed(0), 2, blocks=(1, 1, 1, 1, 1))
+    return {lb: Detector(params, state, YoloConfig(num_classes=2, img_dim=96), device="cuda",
+                         letterbox=lb) for lb in (True, False)}
+
+
+@pytest.mark.parametrize("letterbox", [True, False], ids=["letterbox", "resize"])
+def test_detect_launches_the_letterbox_once(lb_det, letterbox):
+    """One launch a detect call, and a CUDA batch never takes the plain path."""
+    det, images = lb_det[letterbox], _lb_images(LB_COCO_WH, 5)
+    det.detect(images)
+    before = L.letterbox_batch.launches
+    for _ in range(3):
+        det.detect(images)
+    assert L.letterbox_batch.launches == before + 3
+    x, org = det.preprocess(images)
+    assert x.device.type == "cuda" and x.dtype == torch.float32 and x.shape == (5, 96, 96, 3)
+    assert org.device.type == "cuda" and org.dtype == torch.float32
+    assert org.cpu().tolist() == [[im.shape[1], im.shape[0]] for im in images]
+    assert (x.cpu() - _lb_plain(images, 96, letterbox)).abs().max().item() <= 2e-6
+
+
+def test_preprocess_makes_no_synchronising_call(dev, lb_det):
+    det, images = lb_det[True], _lb_images(LB_COCO_WH, 6)
+    det.preprocess(images)           # the kernel built, a pinned block cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):          # the mode sees a pageable upload
+            torch.from_numpy(images[0]).to(dev)
+        x, org = det.preprocess(images)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (x.cpu() - _lb_plain(images, 96, True)).abs().max().item() <= 2e-6
+
+
+def test_back_to_back_preprocess_calls_keep_their_batches(dev, lb_det):
+    """The second batch is staged while the first one's upload still waits
+    behind a busy card: each call returns its own letterbox."""
+    det = lb_det[True]
+    first, second = _lb_images(LB_COCO_WH, 8, seed=5), _lb_images(LB_COCO_WH, 8, seed=6)
+    det.preprocess(first)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # ~0.1 s of a spinning kernel ahead of the uploads
+    xa, oa = det.preprocess(first)
+    xb, ob = det.preprocess(second)
+    assert (xa.cpu() - _lb_plain(first, 96, True)).abs().max().item() <= 2e-6
+    assert (xb.cpu() - _lb_plain(second, 96, True)).abs().max().item() <= 2e-6

@@ -26,7 +26,8 @@ def _rand_boxes(rng, n, span=60.0):
 def test_letterbox_device_matches_jax(hw):
     img = np.random.default_rng(0).integers(0, 255, hw + (3,), dtype=np.uint8)
     want = np.asarray(JL.letterbox_device(jnp.asarray(img), (64, 64)))
-    got = TL.letterbox_device(torch.from_numpy(img), (64, 64)).numpy()
+    src, desc, _ = TL.stage_batch([img], 64, True, "cpu")
+    got = TL.letterbox_batch(src, desc, 64)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 

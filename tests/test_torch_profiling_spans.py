@@ -76,10 +76,10 @@ def test_detect_spans_in_a_chrome_trace(trees, images, precision, tmp_path):
             assert a["ts"] + a["dur"] <= b["ts"]
         h2d = [s for s in inner if s["name"] == "yolo.h2d"]
         rounds = [s for s in inner if s["name"] == "yolo.nms.round"]
-        # preprocess: the sizes and each image; postprocess: 6 anchor
-        # tensors and the net's input size (width, height)
-        assert len(h2d) == len(images) + 1 + 6 + 2
-        assert sum(_inside(s, stages[0]) for s in h2d) == len(images) + 1
+        # the preprocess stages the batch with no blocking copy; the
+        # postprocess: 6 anchor tensors and the net's input size (width, height)
+        assert len(h2d) == 6 + 2
+        assert sum(_inside(s, stages[0]) for s in h2d) == 0
         assert sum(_inside(s, stages[2]) for s in h2d) == 6 + 2
         assert rounds and all(_inside(s, stages[2]) for s in rounds)
         assert len(inner) == len(STAGES) + len(h2d) + len(rounds)

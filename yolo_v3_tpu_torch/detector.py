@@ -1,7 +1,8 @@
 """High-level detection API: images in, boxes out.
 
 Port of ``yolo_v3_tpu/detector.py`` for bf16, fp32 and int8 serving.  On
-the device: letterbox or plain resize (cubic, as two matmuls), the forward
+the device: letterbox or plain resize (cubic) of the whole batch, staged as
+one upload (``ops/letterbox.py::stage_batch``, ``letterbox_batch``), the forward
 (BN-folded float with every residual block on the fused kernel, or int8 on
 the int8 kernels), the display or eval postprocess with class-wise greedy
 NMS, and the mapping of boxes back to original-image pixels.  Only the
@@ -18,8 +19,10 @@ pixels.
 Under a recording ``torch.profiler`` a call marks its stages as spans
 (``utils/profiling.py::span``): ``yolo.detect`` holds ``yolo.preprocess``,
 ``yolo.forward``, ``yolo.postprocess`` and ``yolo.readback``; ``yolo.h2d``
-marks each blocking host-to-device copy and ``yolo.nms.round`` each NMS
-round.
+marks each blocking host-to-device copy (the postprocess's: 6 anchor
+tensors and the net size's two values; the device preprocess uploads with
+one non-blocking copy, the host one with a blocking copy of the sizes and
+one of the batch) and ``yolo.nms.round`` each NMS round.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as W
 from yolo_v3_tpu_torch.ops import boxes as B
-from yolo_v3_tpu_torch.ops.letterbox import (letterbox_device, letterbox_host,
-                                             letterbox_host_u8, resize_cubic_device)
+from yolo_v3_tpu_torch.ops.letterbox import (letterbox_batch, letterbox_host,
+                                             letterbox_host_u8, stage_batch)
 from yolo_v3_tpu_torch.ops.postprocess import detections_to_lists, postprocess_from_raws
 from yolo_v3_tpu_torch.parallel import mesh as M
 from yolo_v3_tpu_torch.parallel.halo import gather_batch
@@ -212,24 +215,16 @@ class Detector:
         """HWC uint8 RGB images -> ([B, dim, dim, 3] float32 in [0, 1], or
         uint8 for the uint8 feed; org_dims [B, 2]), both on the detector's
         device.  Letterbox or plain cubic resize per ``letterbox``, on the
-        device or on the host (OpenCV) per ``resize_on_device``."""
+        device (the batch staged as one non-blocking upload, one kernel
+        launch on a card) or on the host (OpenCV) per ``resize_on_device``."""
         with span("preprocess"):
             dim = dim or self.config.img_dim
+            if self.resize_on_device:
+                src, desc, org = stage_batch(images, dim, self.letterbox, self.device)
+                return letterbox_batch(src, desc, dim), org
             with span("h2d"):
                 org = torch.tensor([[im.shape[1], im.shape[0]] for im in images],
                                    dtype=torch.float32, device=self.device)
-
-            def on_device(im):
-                with span("h2d"):
-                    return torch.from_numpy(np.ascontiguousarray(im)).to(self.device)
-
-            if self.resize_on_device:
-                if self.letterbox:
-                    batch = [letterbox_device(on_device(im), (dim, dim)) for im in images]
-                else:
-                    batch = [resize_cubic_device(on_device(im).float() / 255.0, dim, dim)
-                             .clamp(0.0, 1.0) for im in images]
-                return torch.stack(batch), org
             if self.letterbox:
                 host = letterbox_host_u8 if self._u8_feed else letterbox_host
                 batch = np.stack([host(im, (dim, dim)) for im in images])
@@ -260,7 +255,9 @@ class Detector:
         [cls, x, y, w, h, prob, obj] in original-image pixels.  ``is_eval``
         proposes every (box, class) pair, with the eval thresholds
         (``config.eval_conf_thr`` / ``eval_nms_thr``) by default.  ``plain``
-        runs the kernels' plain PyTorch versions instead of the kernels.
+        runs the forward's kernels' plain PyTorch versions instead of the
+        kernels; the preprocess is the same on both paths (its letterbox
+        kernel against its plain version: ``letterbox_batch_ref``).
         """
         with span("detect"):
             if conf_thr is None:

@@ -2,6 +2,7 @@
 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --yolov4      # phase 11 alone
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -137,7 +138,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    process: every kernel launch kept at its mesh shape and held to its
    plain version (int8 bit-equal), launches a rank as one process's, int8
    heads and rows bit-equal, float heads within phase 5's bounds; detect ms
-   a rank and each kernel's per-forward ms, bound and plain ms.
+   a rank and each kernel's per-forward ms, bound and plain ms;
+11. YOLOv4-608 in bf16 (also alone, ``--yolov4``): the Mish residual-block
+   kernel at the five CSP shapes (Cmid = C from stage 1 on) and the bf16
+   padded-2D kernels at every shape of the forward (Mish, leaky, linear), at
+   batch 8, within the bf16 tolerances of their plain versions on the same
+   card operands, timed beside the same launches with leaky, the plain
+   versions and the bound; ``Detector(arch="yolov4")`` with the benchmark
+   cell's seeded weights, ``detect`` on 32 seeded images of COCO val's six
+   sizes at 608, launch counts set to 0 just before (23 Mish blocks, 38 1x1
+   and 13 3x3 padded-2D convs, one letterbox), heads within 5e-2 *
+   max|head| of the plain path, e2e and forward times.
 
 TF32 is turned off only around this script's own plain references and
 cuDNN yardsticks; the Detector paths run under PyTorch's default flags, so
@@ -218,6 +229,31 @@ INT8_LAUNCHES = {"fused_entry": 1, "conv1x1_p2d": 36, "conv3x3_p2d": 31,
 # kernels adds one launch of each
 INT8_LAUNCHES_NO_S2D = {"fused_entry": 0, "conv1x1_p2d": 37, "conv3x3_p2d": 32,
                         "res_block_p2d": 23}
+# YOLOv4-608's bf16 forward (models/yolov4.py): its CSP blocks (grid H = W,
+# C, Cmid) -> blocks, stage by stage, and its padded-2D convs (taps, grid
+# H = W, C, N, activation) -> launches per forward; the split pair is one
+# launch, C -> 2 x the part
+V4_DIM, V4_BATCH = 608, 32
+V4_BLOCKS = {(304, 64, 32): 1, (152, 64, 64): 2, (76, 128, 128): 8, (38, 256, 256): 8,
+             (19, 512, 512): 4}
+V4_CONVS = {
+    # the CSP split pairs, transitions and fuses
+    (1, 304, 64, 128, "mish"): 1, (1, 304, 64, 64, "mish"): 1, (1, 304, 128, 64, "mish"): 1,
+    (1, 152, 128, 128, "mish"): 2, (1, 152, 64, 64, "mish"): 1,
+    (1, 76, 256, 256, "mish"): 2, (1, 76, 128, 128, "mish"): 1,
+    (1, 38, 512, 512, "mish"): 2, (1, 38, 256, 256, "mish"): 1,
+    (1, 19, 1024, 1024, "mish"): 2, (1, 19, 512, 512, "mish"): 1,
+    # the neck and the heads' 3x3s
+    (1, 19, 1024, 512, "leaky"): 6, (1, 19, 2048, 512, "leaky"): 1,
+    (1, 19, 512, 256, "leaky"): 1, (1, 38, 512, 256, "leaky"): 7,
+    (1, 38, 256, 128, "leaky"): 1, (1, 76, 256, 128, "leaky"): 4,
+    (9, 19, 512, 1024, "leaky"): 5, (9, 38, 256, 512, "leaky"): 5,
+    (9, 76, 128, 256, "leaky"): 3,
+    # the detection convs
+    (1, 19, 1024, 255, "linear"): 1, (1, 38, 512, 255, "linear"): 1,
+    (1, 76, 256, 255, "linear"): 1,
+}
+V4_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 38, "conv3x3_p2d": 13}
 # The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
 # kernel is the larger of its operations over the peak of their type and
 # its bytes (each input read once, each output written once) over HBM's rate.
@@ -411,9 +447,9 @@ def cudnn_block(y, w1, b1, w2, b2):
     return run
 
 
-def block_inputs(h, c, dtype, seed):
+def block_inputs(h, c, dtype, seed, cmid=None):
     gen = torch.Generator().manual_seed(seed)
-    cmid = c // 2
+    cmid = cmid or c // 2
 
     def t(*shape, scale):
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
@@ -760,11 +796,11 @@ def spread_batchnorm(params, state, gen):
     walk(params, state)
 
 
-def make_images():
+def make_images(n=BATCH, sizes_hw=IMAGE_HW):
     rng = np.random.default_rng(0)
     imgs = []
-    for i in range(BATCH):
-        h, w = IMAGE_HW[i % len(IMAGE_HW)]
+    for i in range(n):
+        h, w = sizes_hw[i % len(sizes_hw)]
         # smooth random scenes: a coarse noise field upsampled, plus grain
         coarse = rng.integers(0, 255, (h // 16 + 1, w // 16 + 1, 3))
         img = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
@@ -949,6 +985,167 @@ def letterbox_path(card, imgs, launches):
                 replaces=None, launches=launches["bf16"], launches_by_path=launches,
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by="bytes")
+
+
+def check_yolov4_kernels(card):
+    """Phase 11, kernels: the Mish residual block at YOLOv4-608's five CSP
+    shapes (Cmid = C from stage 1 on) and the bf16 padded-2D convs at every
+    shape of its forward (Mish, leaky, linear), at batch 8, each within the
+    bf16 tolerance of its plain version on the same card operands, timed
+    (CUDA-graph replay) beside the same launch with leaky where it has Mish,
+    the plain version and the bound.  Returns {kernel: {max_abs_err, ms,
+    leaky_ms, plain_ms, bound_ms, bound_by, by_act}}, device ms summed over
+    one forward's launches."""
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import (
+        fused_res_block, fused_res_block_ref, plan)
+
+    summary = {}
+
+    def record(name, act, what, got, want, tol, runs, n, ops, nbytes):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = (got.float() - want.float()).abs().max().item()
+        k_ms, l_ms, p_ms = (device_ms(runs[0]), device_ms(runs[1]) if act == "mish" else None,
+                            device_ms(runs[2]))
+        acc = summary.setdefault(name, dict(max_abs_err=0.0, ms=0.0, leaky_ms=0.0,
+                                            plain_ms=0.0, library_ms=None, by_act={}))
+        b_ms, by = add_bound(acc, n, ops, nbytes, "bf16")
+        log(f"kernel {name} {act} {what} max_abs_err={err:.3e} kernel_ms={k_ms:.4f} "
+            f"leaky_ms={fmt_ms(l_ms)} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({by}) "
+            f"x{n} tol={tol} | {card}")
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        part = acc["by_act"].setdefault(act, dict(launches=0, ms=0.0, leaky_ms=0.0,
+                                                  plain_ms=0.0, bound_ms=0.0))
+        for d in (acc, part):
+            d["ms"] += n * k_ms
+            d["leaky_ms"] += n * (k_ms if l_ms is None else l_ms)
+            d["plain_ms"] += n * p_ms
+        part["launches"] += n
+        part["bound_ms"] += n * b_ms
+
+    for (h, c, cmid), n in V4_BLOCKS.items():
+        args = block_inputs(h, c, torch.bfloat16, seed=h, cmid=cmid)
+        got = fused_res_block(*args, act="mish")
+        torch.cuda.synchronize()
+        p = plan(BATCH, h, h, c, cmid, torch.bfloat16, act="mish")
+        record("fused_res_block_bf16_mish", "mish",
+               f"[{BATCH},{h},{h},{c}] Cmid {cmid} cluster={p['cluster']} "
+               f"geometry={p['geometry']} splits={p['splits']}", got,
+               fused_res_block_ref(*args, act="mish"), TOL[torch.bfloat16],
+               (lambda: fused_res_block(*args, act="mish"), lambda: fused_res_block(*args),
+                lambda: fused_res_block_ref(*args, act="mish")), n,
+               2 * BATCH * h * h * (c * cmid + 9 * cmid * c),
+               2 * (2 * BATCH * h * h * c + 10 * c * cmid + cmid + c))
+
+    gen = torch.Generator().manual_seed(4)
+
+    def t(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
+
+    for (taps, hw, c, n, act), count in V4_CONVS.items():
+        x2d = FC.pack_p2d(t(BATCH, hw, hw, c, scale=0.5))
+        w = t(*((3, 3, c, n) if taps == 9 else (c, n)), scale=(taps * c) ** -0.5)
+        ones, b = torch.ones(n, device="cuda"), t(n, scale=0.1, dtype=torch.float32)
+        rows, hp, wp = FC.p2d_geometry(BATCH, hw, hw)
+        fn, ref = ((FC.conv3x3_p2d, FC.conv3x3_p2d_ref) if taps == 9
+                   else (FC.conv1x1_p2d, FC.conv1x1_p2d_ref))
+
+        def run(f, a):
+            return lambda: f(x2d, w, ones, b, hp, wp, act=a, out_dtype=torch.bfloat16)
+
+        got = run(fn, act)()
+        torch.cuda.synchronize()
+        record(f"{fn.__name__}_bf16_yolov4", act, f"[{BATCH},{hw},{hw},{c}]->{n}", got,
+               run(ref, act)(), P2D_BF16_TOL, (run(fn, act), run(fn, "leaky"), run(ref, act)),
+               count, 2 * BATCH * hw * hw * taps * c * n,
+               2 * (rows * c + w.numel() + rows * n) + 8 * n)
+
+    for name, acc in summary.items():
+        finish_bound(acc)
+        parts = ", ".join(f"{a}: {d['launches']} launches {d['ms']:.4f} ms (leaky "
+                          f"{d['leaky_ms']:.4f}) plain {d['plain_ms']:.4f} bound "
+                          f"{d['bound_ms']:.4f}" for a, d in acc["by_act"].items())
+        log(f"kernel {name} per YOLOv4-608 forward at batch {BATCH}: kernel_ms="
+            f"{acc['ms']:.4f} (the same launches with leaky {acc['leaky_ms']:.4f}) plain_ms="
+            f"{acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.4f} ({acc['bound_by']}); "
+            f"{parts} | {card}")
+    return summary
+
+
+def yolov4_path(card):
+    """Phase 11: YOLOv4-608 in bf16 (``Detector(arch="yolov4")``).  The Mish
+    kernels against their plain versions (:func:`check_yolov4_kernels`);
+    then the benchmark cell's seeded weights (``portbench/weights_yolov4.py``,
+    BN statistics measured on 8 of the images) and ``detect`` on 32 seeded
+    images of COCO val's six sizes at 608, the kernels' launch counts set to
+    0 just before and read just after (23 Mish blocks, 38 1x1 and 13 3x3
+    padded-2D convs, one letterbox), heads held to the plain path within
+    5e-2 * max|head|, the rows' count beside the plain path's
+    (information), and the e2e and forward times.  Returns the ``kernels``
+    line's entries for the Mish block and the two padded-2D kernels."""
+    from portbench import weights_yolov4
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.models import yolov4 as Y4
+    from yolo_v3_tpu_torch.ops import fused_conv as FC
+    from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
+    from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    summary = check_yolov4_kernels(card)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                           "configs", "yolov4-608-bf16.json")) as f:
+        cfg = json.load(f)
+    check(cfg["input_size"] == V4_DIM and tuple(cfg["blocks"]) == Y4.CSP_BLOCKS,
+          "the cell's configuration is YOLOv4-608")
+    imgs = make_images(V4_BATCH, [(h, w) for w, h in COCO_WH])
+    params, state = weights_yolov4.make(cfg, 0, torch.device("cuda"), imgs[:8])
+    config = YoloConfig(num_classes=cfg["classes"], img_dim=V4_DIM, anchors=Y4.ANCHORS,
+                        anchor_masks=Y4.ANCHOR_MASKS)
+    det = Detector(params, state, config, precision="bf16", device="cuda", arch="yolov4")
+    counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
+                "conv3x3_p2d": FC.conv3x3_p2d}
+    rows, launches = counted(dict(counters, letterbox=letterbox_batch),
+                             lambda: det.detect(imgs))
+    check(launches == dict(V4_LAUNCHES, letterbox=1),
+          f"YOLOv4 launches in one detect {launches}, want {V4_LAUNCHES} and one letterbox")
+    check_rows(rows, imgs, config.num_classes)
+    plain_rows = det.detect(imgs, plain=True)
+    log(f"yolov4 bf16: detect({V4_BATCH} images at {V4_DIM}) ok, kernel launches {launches}, "
+        f"detections {sum(map(len, rows))} (plain path {sum(map(len, plain_rows))}; bf16 "
+        f"rows are information) | {card}")
+
+    x, _ = det.preprocess(imgs)
+    xd = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        heads, plain = det.model(xd), det.model(xd, plain=True)
+    for i, (h, p) in enumerate(zip(heads, plain)):
+        g = V4_DIM // 32 * 2 ** i
+        check(tuple(h.shape) == (V4_BATCH, g, g, 255), f"yolov4 head{i} shape {tuple(h.shape)}")
+        check(bool(torch.isfinite(h).all()), f"yolov4 head{i} finite")
+        scale = p.float().abs().max().item()
+        err = (h.float() - p.float()).abs().max().item()
+        check(err <= 5e-2 * scale, f"yolov4 head{i} err {err} > 5e-2 * {scale}")
+        log(f"yolov4 bf16: head{i} {tuple(h.shape)} kernel vs plain max_abs_err={err:.3e} "
+            f"max|head|={scale:.3e} (<= 5e-2*max|head|) | {card}")
+    del plain
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: det.model(xd), iters=5, warmup=2)
+        fwd_busy = busy_ms(lambda: det.model(xd), iters=3)
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms = cuda_ms(lambda: det.detect(imgs), iters=5, warmup=2)
+    log(f"time yolov4 bf16 bs{V4_BATCH} {V4_DIM}: e2e detect {V4_BATCH * 1000 / e2e_ms:.2f} "
+        f"imgs/sec ({e2e_ms:.3f} ms/batch), forward {fwd_ms:.3f} ms (device busy "
+        f"{fmt_ms(fwd_busy)}), peak memory {torch.cuda.max_memory_allocated()} bytes | {card}")
+    del det, heads
+    torch.cuda.empty_cache()
+
+    source = {"fused_res_block_bf16_mish": "csrc/fused_res_block.cu",
+              "conv1x1_p2d_bf16_yolov4": "csrc/conv_p2d.cu",
+              "conv3x3_p2d_bf16_yolov4": "csrc/conv_p2d.cu"}
+    return [dict(name=name, route="cuda", source=f"yolo_v3_tpu_torch/{source[name]}",
+                 replaces=None, model="yolov4-608", batch=BATCH,
+                 launches=launches[name.split("_bf16")[0]], **acc)
+            for name, acc in summary.items()]
 
 
 def iou_xywh(a, b):
@@ -3218,6 +3415,7 @@ def main():
         mesh_launches = space_path(card, weights_path, imgs, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    v4_kernels = yolov4_path(card)
 
     kernels = [dict(name=f"fused_res_block_{NAMES[dt]}", route="cuda",
                     source="yolo_v3_tpu_torch/csrc/fused_res_block.cu",
@@ -3257,10 +3455,33 @@ def main():
                               if run.split("/")[1] in (precision, precision + "u8")}
     kernels += options
     kernels.append(letterbox_entry)
+    kernels += v4_kernels
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device_entry()}))
+
+
+def device_entry():
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def yolov4_main():
+    """Phase 11 alone (``--yolov4``): builds the three sources it runs."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
+    from yolo_v3_tpu_torch.ops import _build
+
+    card = card_line()
+    log(card)
+    sources = ("fused_res_block", "conv_p2d", "letterbox")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc per source
+        list(pool.map(_build.build, sources))
+    for name in sources:
+        _build.load(name)
+    log(f"build: {', '.join(sources)} {time.perf_counter() - t0:.2f} s | {card}")
+    print(json.dumps({"kernels": yolov4_path(card)}))
+    print(json.dumps({"ok": True, "device": device_entry()}))
 
 
 if __name__ == "__main__":
@@ -3272,5 +3493,7 @@ if __name__ == "__main__":
         dp_worker(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--space-worker"]:
         space_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--yolov4"]:
+        yolov4_main()
     else:
         main()

@@ -1,0 +1,9 @@
+"""Device milliseconds a call spends in kernels and copies launched inside
+the program's ``yolo.backbone`` span (YOLOv4's stem and five CSP stages;
+the union of their intervals), averaged over the traced calls; None where
+the program marks no such span."""
+
+
+def read(m):
+    fn = getattr(m.trace, "program_device_ms", None)
+    return fn("backbone", m.calls) if fn is not None else None

@@ -939,3 +939,104 @@ def test_back_to_back_preprocess_calls_keep_their_batches(dev, lb_det):
     xb, ob = det.preprocess(second)
     assert (xa.cpu() - _lb_plain(first, 96, True)).abs().max().item() <= 2e-6
     assert (xb.cpu() - _lb_plain(second, 96, True)).abs().max().item() <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# The Mish epilogues (YOLOv4): the residual block at its CSP shapes, Cmid = C
+# included, and the padded-2D kernel with each activation code
+# ---------------------------------------------------------------------------
+
+# (shape, Cmid): stage 0 (64 -> 32 -> 64 at 304^2) and stages 1-4 (Cmid = C)
+# of YOLOv4-608, at batch 2 and, for the smallest grid, at the cell's 32
+CSP_BLOCK_SHAPES = [
+    ((2, 304, 304, 64), 32),
+    ((2, 152, 152, 64), 64),
+    ((2, 76, 76, 128), 128),
+    ((2, 38, 38, 256), 256),
+    ((2, 19, 19, 512), 512),
+    ((32, 19, 19, 512), 512),
+]
+
+
+@pytest.mark.parametrize("shape,cmid", CSP_BLOCK_SHAPES,
+                         ids=[f"{s[0]}x{s[1]}-{s[3]}-{m}" for s, m in CSP_BLOCK_SHAPES])
+def test_bf16_mish_block_matches_plain(dev, shape, cmid):
+    args = _block_inputs(shape, cmid, torch.bfloat16, dev)
+    before = fused_res_block.launches
+    got = fused_res_block(*args, act="mish")
+    torch.cuda.synchronize()
+    assert fused_res_block.launches == before + 1
+    want = fused_res_block_ref(*args, act="mish")
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+    # Mish, not leaky: the two differ by far more than the tolerance
+    leaky = fused_res_block_ref(*args)
+    assert (leaky.float() - want.float()).abs().max() > 0.1
+    assert plan(*shape, cmid, torch.bfloat16, act="mish")["cluster"] >= 1
+
+
+def test_mish_block_rejects_fp32(dev):
+    args = _block_inputs((1, 16, 16, 64), 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="mish"):
+        fused_res_block(*args, act="mish")
+
+
+# (taps, H = W, C, N): YOLOv4-608's CSP split pair (one launch), transition
+# and fuse at 152^2 and 19^2, and neck / head shapes
+MISH_P2D_SHAPES = [
+    (1, 304, 64, 128), (1, 152, 128, 128), (1, 152, 64, 64),
+    (1, 19, 1024, 1024), (1, 19, 512, 512),
+    (9, 38, 256, 512), (1, 76, 256, 255),
+]
+
+
+@pytest.mark.parametrize("act", ["mish", "leaky", "linear"])
+@pytest.mark.parametrize("taps,hw,c,n", MISH_P2D_SHAPES,
+                         ids=[f"{'3x3' if t == 9 else '1x1'}-{h}-{c}-{n}"
+                              for t, h, c, n in MISH_P2D_SHAPES])
+def test_bf16_conv_kernel_each_activation(dev, taps, hw, c, n, act):
+    b = 2
+    x2d, wt, s, bias, _ = _bf16_conv_inputs(b, hw, hw, c, n, taps, False, dev)
+    _, hp, wp = FC.p2d_geometry(b, hw, hw)
+    fn, ref = ((FC.conv1x1_p2d, FC.conv1x1_p2d_ref) if taps == 1
+               else (FC.conv3x3_p2d, FC.conv3x3_p2d_ref))
+    got = fn(x2d, wt, s, bias, hp, wp, act=act, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = ref(x2d, wt, s, bias, hp, wp, act=act, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    full = got.reshape(b, hw + 2, hw + 2, n).float()
+    assert full[:, 0].abs().sum() == 0 and full[:, :, -1].abs().sum() == 0
+    if act != "leaky":       # the code is the activation: none and Mish are not leaky
+        other = ref(x2d, wt, s, bias, hp, wp, leaky=True, out_dtype=torch.bfloat16)
+        assert (other.float() - want.float()).abs().max() > 0.05
+
+
+def test_mish_conv_kernel_rejects_int8(dev):
+    x2d, wt, s, bias, _ = _conv_inputs(1, 8, 8, 16, 16, 1, False, dev)
+    _, hp, wp = FC.p2d_geometry(1, 8, 8)
+    with pytest.raises(ValueError, match="mish"):
+        FC.conv1x1_p2d(x2d, wt, s, bias, hp, wp, act="mish")
+
+
+def test_yolov4_forward_runs_on_the_kernels(dev):
+    """A bf16 YOLOv4 forward launches one Mish block per CSP block (23) and
+    51 padded-2D convs (38 1x1: the split pairs, transitions and fuses, the
+    neck's 1x1s and the dets; 13 3x3); its heads are within 5e-2 *
+    max|head| of the plain path."""
+    from yolo_v3_tpu_torch.models import yolov4 as Y4
+
+    params, state = Y4.init_yolov4(torch.Generator().manual_seed(0), 2)
+    model = Y4.YoloV4Folded(D.cast_params(D.fold_batchnorm(params, state),
+                                          torch.bfloat16, dev)).eval()
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(
+        dev, torch.bfloat16)
+    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        heads = model(x)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(counters, before)] == [23, 38, 13]
+        plain = model(x, plain=True)
+    for h, p in zip(heads, plain):
+        assert h.dtype == torch.bfloat16 and h.shape == p.shape
+        scale = p.float().abs().max().item()
+        assert (h.float() - p.float()).abs().max().item() <= 5e-2 * scale

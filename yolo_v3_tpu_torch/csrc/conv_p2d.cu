@@ -17,9 +17,15 @@
 // no contraction (__fmul_rn / __fadd_rn), so that it matches the plain
 // PyTorch version step for step (bit-equal for int8 input, whose
 // accumulator is exact):
-//     y = acc * scale + bias;  y = leaky(y);  y = y + residual * res_scale
+//     y = acc * scale + bias;  y = act(y);  y = y + residual * res_scale
 //     y = 0 on border rows;    int8: clip(rint(y), -127, 127)  (half to even)
 //                              bf16: round to nearest even
+// act is an activation code: 0 none, 1 leaky(0.1), 2 Mish (bf16 input only;
+// its own instantiation of the kernel, MISH, so that the leaky kernels are
+// the code they were).  Mish is x * tanh(softplus(x)) computed as
+// x * (n^2 + 2n) / (n^2 + 2n + 2), n = e^x, and x above 20 (darknet's
+// threshold), with the fast exponential and division: within a bf16 rounding
+// of the plain version, not bit-equal to it.
 //
 // What bounds it on the H100.  At YOLOv3-416, batch 8, the 1x1s are
 // [R, C] @ [C, N] with R = 8*(H+2)^2 and N = C/2 (or 255 for a det): at
@@ -83,18 +89,31 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 constexpr float LEAKY = 0.1f;
+constexpr float MISH_THRESHOLD = 20.f;
+constexpr int ACT_MISH = 2;  // the activation code of Mish (ACT_LEAKY = 1, none 0)
 
 __device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
-// The epilogue of one accumulator, in the plain version's order.
-template <typename A>
+// Mish in the plain version's order (ops/activations.py::mish).
+__device__ __forceinline__ float mish(float x) {
+  if (x > MISH_THRESHOLD) return x;
+  const float n = __expf(x), t = __fmul_rn(n, __fadd_rn(n, 2.f));
+  return __fdividef(__fmul_rn(x, t), __fadd_rn(t, 2.f));
+}
+
+// The epilogue of one accumulator, in the plain version's order: leaky where
+// lk, Mish in the MISH kernel.
+template <bool MISH, typename A>
 __device__ __forceinline__ float epilogue(A acc, float scale, float bias, bool lk, bool has_res,
                                           float res, float res_scale) {
   float y = __fadd_rn(__fmul_rn(to_float(acc), scale), bias);
-  if (lk) y = y > 0.f ? y : __fmul_rn(LEAKY, y);
+  if (MISH)
+    y = mish(y);
+  else if (lk)
+    y = y > 0.f ? y : __fmul_rn(LEAKY, y);
   if (has_res) y = __fadd_rn(y, __fmul_rn(res, res_scale));
   return y;
 }
@@ -228,7 +247,7 @@ int plan(int R, int C, int N, int taps, int sms) {
 // barrier (the consumer warps out) each.  Warps 0 .. 4 * wgs - 1 are the
 // consumer warpgroups; warpgroup wg owns rows [64 wg, 64 wg + 64) of the
 // tile.
-template <typename In, int TAPS, int WGS, int BNV, int BPS>
+template <typename In, int TAPS, int WGS, int BNV, int BPS, bool MISH>
 __global__ void __launch_bounds__(128 * WGS + 32, BPS) conv_p2d_kernel(
     const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
     const float* __restrict__ scale, const float* __restrict__ bias,
@@ -364,8 +383,9 @@ __global__ void __launch_bounds__(128 * WGS + 32, BPS) conv_p2d_kernel(
           for (int e = 0; e < 2; ++e) {
             const int n = nc + c + e;
             y[e] = keep[h] && n < N
-                       ? epilogue(acc[4 * (8 * cc + i) + 2 * h + e], sc[2 * i + e], bi[2 * i + e],
-                                  leaky != 0, residual != nullptr, rv[h][2 * i + e], res_scale)
+                       ? epilogue<MISH>(acc[4 * (8 * cc + i) + 2 * h + e], sc[2 * i + e],
+                                        bi[2 * i + e], leaky != 0, residual != nullptr,
+                                        rv[h][2 * i + e], res_scale)
                        : 0.f;
           }
           unsigned char* at = stage + (g + 8 * h) * EPI_LD + c * es;
@@ -453,46 +473,60 @@ int cached_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int
   return 0;
 }
 
-// The kernel of (In, TAPS, TILES[v]).
-template <typename In, int TAPS>
+// The kernel of (In, TAPS, TILES[v], MISH); Mish only for bf16 input (null
+// for int8).
+template <typename In, int TAPS, bool MISH>
 const void* kernel_of(int v) {
   static_assert(N_TILES == 2, "one kernel per tile shape");
   constexpr Tiles a = TILES[0], b = TILES[1];
-  return v == 0 ? reinterpret_cast<const void*>(conv_p2d_kernel<In, TAPS, a.wgs, a.bn, a.bps>)
-                : reinterpret_cast<const void*>(conv_p2d_kernel<In, TAPS, b.wgs, b.bn, b.bps>);
+  if constexpr (MISH && !std::is_same<In, Bf16In>::value) {
+    return nullptr;
+  } else {
+    return v == 0
+               ? reinterpret_cast<const void*>(conv_p2d_kernel<In, TAPS, a.wgs, a.bn, a.bps, MISH>)
+               : reinterpret_cast<const void*>(conv_p2d_kernel<In, TAPS, b.wgs, b.bn, b.bps, MISH>);
+  }
 }
 
-// Let the kernel of (In, TAPS, TILES[v]) take its shared memory (above 48
-// KB only after this call, once per device).
 template <typename In, int TAPS>
-int allow_smem(int v) {
+const void* kernel_of(int v, int act) {
+  return act == ACT_MISH ? kernel_of<In, TAPS, true>(v) : kernel_of<In, TAPS, false>(v);
+}
+
+// Let the kernel of (In, TAPS, TILES[v], act) take its shared memory (above
+// 48 KB only after this call, once per device).
+template <typename In, int TAPS>
+int allow_smem(int v, int act) {
   const Tiles t = TILES[v];
-  return (int)cudaFuncSetAttribute(kernel_of<In, TAPS>(v),
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* fn = kernel_of<In, TAPS>(v, act);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes(TAPS, t.wgs, t.bn, t.bps));
 }
 
-// The tile shape of each (device, input type, shape), planned once.
-struct Plan { int dev, is_i8, R, C, N, taps, variant; };
+// The tile shape of each (device, input type, shape, Mish or not), planned
+// once.
+struct Plan { int dev, is_i8, R, C, N, taps, mish, variant; };
 std::mutex plan_mutex;
 Plan plans[64];
 int n_plans = 0;
 
 template <typename In, int TAPS>
-int get_variant(int dev, int sms, int R, int C, int N, int* variant) {
-  const int is_i8 = std::is_same<In, I8In>::value;
+int get_variant(int dev, int sms, int R, int C, int N, int act, int* variant) {
+  const int is_i8 = std::is_same<In, I8In>::value, mish = act == ACT_MISH;
   std::lock_guard<std::mutex> lock(plan_mutex);
   for (int i = 0; i < n_plans; ++i) {
     const Plan& p = plans[i];
-    if (p.dev == dev && p.is_i8 == is_i8 && p.R == R && p.C == C && p.N == N && p.taps == TAPS) {
+    if (p.dev == dev && p.is_i8 == is_i8 && p.R == R && p.C == C && p.N == N && p.taps == TAPS &&
+        p.mish == mish) {
       *variant = p.variant;
       return 0;
     }
   }
   *variant = plan<In>(R, C, N, TAPS, sms);
-  const int e = allow_smem<In, TAPS>(*variant);
+  const int e = allow_smem<In, TAPS>(*variant, act);
   if (e == 0 && n_plans < (int)(sizeof(plans) / sizeof(plans[0])))
-    plans[n_plans++] = {dev, is_i8, R, C, N, TAPS, *variant};
+    plans[n_plans++] = {dev, is_i8, R, C, N, TAPS, mish, *variant};
   return e;
 }
 
@@ -501,14 +535,15 @@ template <typename In, int TAPS>
 int launch_taps(int variant, const void* x, const void* w, const void* scale, const void* bias,
                 const void* residual, float res_scale, void* out, int out_bf16, int R, int C,
                 int N, int hp, int wp, int leaky, void* stream) {
-  if (R <= 0 || C <= 0 || N <= 0 || hp < 3 || wp < 3 || variant < -1 || variant >= N_TILES)
+  if (R <= 0 || C <= 0 || N <= 0 || hp < 3 || wp < 3 || variant < -1 || variant >= N_TILES ||
+      leaky < 0 || leaky > ACT_MISH)
     return (int)cudaErrorInvalidValue;
   const int row = C * (int)sizeof(typename In::T);
   if (row % 16) return (int)cudaErrorInvalidValue;  // TMA: 16-byte rows of x2d and of wt
   int dev = 0, sms = 0, e = (int)cudaGetDevice(&dev);
   if (e == 0) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == 0) e = variant < 0 ? get_variant<In, TAPS>(dev, sms, R, C, N, &variant)
-                              : allow_smem<In, TAPS>(variant);
+  if (e == 0) e = variant < 0 ? get_variant<In, TAPS>(dev, sms, R, C, N, leaky, &variant)
+                              : allow_smem<In, TAPS>(variant, leaky);
   if (e != 0) return e;
   const Tiles t = TILES[variant];
   const cuuint64_t x_dims[2] = {(cuuint64_t)C, (cuuint64_t)R}, x_strides[1] = {(cuuint64_t)row};
@@ -524,7 +559,7 @@ int launch_taps(int variant, const void* x, const void* w, const void* scale, co
   const long long grid = tiles < (long long)sms * t.bps ? tiles : (long long)sms * t.bps;
   void* args[] = {&x_map, &w_map, &scale, &bias, &residual, &res_scale, &out, &out_bf16,
                   &R, &C, &N, &hp, &wp, &leaky};
-  return (int)cudaLaunchKernel(kernel_of<In, TAPS>(variant), dim3((unsigned)grid),
+  return (int)cudaLaunchKernel(kernel_of<In, TAPS>(variant, leaky), dim3((unsigned)grid),
                                dim3(128 * t.wgs + 32), args,
                                smem_bytes(TAPS, t.wgs, t.bn, t.bps),
                                static_cast<cudaStream_t>(stream));
@@ -551,7 +586,8 @@ extern "C" {
 // _i8 entry points; C % 16 == 0) or bf16 (_bf16; C % 8 == 0), w the weight
 // K-major: [N, taps*C] of x's dtype (row n holds tap-major, then channel);
 // scale, bias [N] float32; residual [R, N] of x's dtype or null; out [R, N]
-// int8, or bf16 when out_bf16.  All device pointers to contiguous arrays, x
+// int8, or bf16 when out_bf16; leaky the activation code (0 none, 1 leaky,
+// 2 Mish: bf16 input only).  All device pointers to contiguous arrays, x
 // and w 16-byte aligned; the kernel runs on `stream` and does not
 // synchronise.
 int yolo_conv1x1_p2d_i8(const void* x, const void* w, const void* scale, const void* bias,
@@ -605,11 +641,11 @@ int yolo_conv_p2d_plan(int is_i8, int R, int C, int N, int taps) {
   if (e == 0 && taps != 1 && taps != 9) e = (int)cudaErrorInvalidValue;
   if (e == 0) {
     if (is_i8)
-      e = taps == 9 ? get_variant<I8In, 9>(dev, sms, R, C, N, &variant)
-                    : get_variant<I8In, 1>(dev, sms, R, C, N, &variant);
+      e = taps == 9 ? get_variant<I8In, 9>(dev, sms, R, C, N, 1, &variant)
+                    : get_variant<I8In, 1>(dev, sms, R, C, N, 1, &variant);
     else
-      e = taps == 9 ? get_variant<Bf16In, 9>(dev, sms, R, C, N, &variant)
-                    : get_variant<Bf16In, 1>(dev, sms, R, C, N, &variant);
+      e = taps == 9 ? get_variant<Bf16In, 9>(dev, sms, R, C, N, 1, &variant)
+                    : get_variant<Bf16In, 1>(dev, sms, R, C, N, 1, &variant);
   }
   return e != 0 ? -e : variant;
 }

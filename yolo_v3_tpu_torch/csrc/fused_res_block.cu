@@ -5,6 +5,11 @@
 // with SAME padding, LeakyReLU(0.1), fp32 accumulation and round() = a cast to
 // the storage type (float or bf16).  Replaces the TPU Pallas kernel
 // yolo_v3_tpu/ops/pallas_kernels.py::fused_res_block (_res_block_kernel).
+// The bf16 kernel also takes Mish in place of leaky on both convs (its Act
+// template argument; YOLOv4's CSPDarknet53 blocks, where Cmid may equal C):
+// mish(x) = x * (n^2 + 2n) / (n^2 + 2n + 2), n = e^x, and x above 20
+// (darknet's threshold), in fp32 on the accumulator with the fast exponential
+// and division (ops/activations.py::mish is its plain version).
 //
 // Semantics kept from the reference (the XLA chain darknet._conv_bias_leaky):
 //   * mid is rounded to the storage type after the leaky; conv2's result is
@@ -116,6 +121,21 @@ constexpr float LEAKY = 0.1f;
 
 __device__ __forceinline__ float leaky(float x) { return x > 0.f ? x : LEAKY * x; }
 
+// The bf16 kernel's activations (its Act template argument); ACT is the
+// host's activation code (1 leaky, 2 Mish).
+struct ActLeaky {
+  static constexpr int ACT = 1;
+  static __device__ __forceinline__ float f(float x) { return leaky(x); }
+};
+struct ActMish {
+  static constexpr int ACT = 2;
+  static __device__ __forceinline__ float f(float x) {
+    if (x > 20.f) return x;
+    const float n = __expf(x), t = n * (n + 2.f);
+    return __fdividef(x * t, t + 2.f);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Shared
 // ---------------------------------------------------------------------------
@@ -179,7 +199,7 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
 // conv2's, each slot with a `full` barrier (its bytes in) and an `empty`
 // barrier (the 8 consumer warps out).  Warps 0-7 are two consumer
 // warpgroups.
-template <int V>
+template <int V, class Act>
 __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
     const __grid_constant__ CUtensorMap y_map, const __grid_constant__ CUtensorMap w1_map,
     const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ y,
@@ -303,9 +323,9 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
           const int m = m_lo + n;
           // 0 outside the image (the 3x3's zero padding) and in padded channels
           const float v0 =
-              inside && m < Cmid ? leaky(acc[4 * i + 2 * h] + b1f[m]) : 0.f;
+              inside && m < Cmid ? Act::f(acc[4 * i + 2 * h] + b1f[m]) : 0.f;
           const float v1 = inside && m + 1 < Cmid
-                               ? leaky(acc[4 * i + 2 * h + 1] + b1f[m + 1])
+                               ? Act::f(acc[4 * i + 2 * h + 1] + b1f[m + 1])
                                : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(mid + p * ms + m) = __floats2bfloat162_rn(v0, v1);
         }
@@ -421,8 +441,8 @@ __global__ void __launch_bounds__(BNT, V == 128 ? 1 : 2) res_block_bf16_kernel(
           if (gy >= H || gx >= W || co >= co_end) continue;
           const size_t at = img + ((size_t)gy * W + gx) * C + co;
           // conv2's result rounds to bf16, then adds to y in bf16
-          const __nv_bfloat162 r = __floats2bfloat162_rn(leaky(acc[4 * i + 2 * h] + b2f[co]),
-                                                         leaky(acc[4 * i + 2 * h + 1] + b2f[co + 1]));
+          const __nv_bfloat162 r = __floats2bfloat162_rn(Act::f(acc[4 * i + 2 * h] + b2f[co]),
+                                                         Act::f(acc[4 * i + 2 * h + 1] + b2f[co + 1]));
           const __nv_bfloat162 yv = yres[i][h];
           *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(
               __low2float(yv) + __low2float(r), __high2float(yv) + __high2float(r));
@@ -909,7 +929,7 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // Plans are cached by (device, dtype, shape): the occupancy queries and
 // cudaFuncSetAttribute cost host time, and run once per shape.
 struct Plan {
-  int dev, bf16, B, H, W, C, Cmid;
+  int dev, bf16, act, B, H, W, C, Cmid;  // act: 1 leaky, 2 Mish (bf16 only)
   int variant, splits, cs, ms_chunk, co_per_block;  // variant: the kernel's template argument
   int flat, tiles, mrows;  // geometry: raster tiles (1) or 8x8 (0); tiles an image; mid rows
   size_t smem;
@@ -926,12 +946,12 @@ struct F32Kernel {
   }
 };
 
-template <int V>
+template <int V, class Act>
 struct Bf16Kernel {
   static constexpr int VARIANT = V, N2 = 2 * V, MGRAN = BMGRAN, MSG = BMGRAN, THREADS = BNT;
   static constexpr int ROWS1 = HP;
   static constexpr bool REPLICATE = true, FLAT = false;
-  static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V>); }
+  static const void* fn() { return reinterpret_cast<const void*>(res_block_bf16_kernel<V, Act>); }
   // + 1024: the ring's alignment; then the barriers and the biases in fp32
   static size_t smem(int C, int Mpad, int, int, int) {
     return bf16_mid_bytes(Mpad) + 1024 + (size_t)bf16_region(V) * sizeof(bf16) +
@@ -1012,9 +1032,16 @@ std::mutex plan_mutex;
 Plan plans[64];
 int n_plans = 0;
 
-int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
+template <class Act>
+int split_bf16(int C, Plan* plan) {
+  return C < 128 ? split<Bf16Kernel<32, Act>>(plan)
+         : C < 256 ? split<Bf16Kernel<64, Act>>(plan) : split<Bf16Kernel<128, Act>>(plan);
+}
+
+int get_plan(int bf16, int act, int B, int H, int W, int C, int Cmid, Plan* out) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Cmid <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (act != ActLeaky::ACT && (act != ActMish::ACT || !bf16)) return (int)cudaErrorInvalidValue;
   if (C % (bf16 ? 8 : 4) != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows of y
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
@@ -1022,23 +1049,34 @@ int get_plan(int bf16, int B, int H, int W, int C, int Cmid, Plan* out) {
   std::lock_guard<std::mutex> lock(plan_mutex);
   for (int i = 0; i < n_plans; ++i) {
     const Plan& p = plans[i];
-    if (p.dev == dev && p.bf16 == bf16 && p.B == B && p.H == H && p.W == W && p.C == C &&
-        p.Cmid == Cmid) {
+    if (p.dev == dev && p.bf16 == bf16 && p.act == act && p.B == B && p.H == H && p.W == W &&
+        p.C == C && p.Cmid == Cmid) {
       *out = p;
       return 0;
     }
   }
-  Plan plan = {dev, bf16, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  Plan plan = {dev, bf16, act, B, H, W, C, Cmid, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   int rc;
   if (!bf16)
     rc = C <= 64 ? split<F32Kernel<32>>(&plan) : split<F32Kernel<64>>(&plan);
   else
-    rc = C < 128 ? split<Bf16Kernel<32>>(&plan)
-         : C < 256 ? split<Bf16Kernel<64>>(&plan) : split<Bf16Kernel<128>>(&plan);
+    rc = act == ActMish::ACT ? split_bf16<ActMish>(C, &plan) : split_bf16<ActLeaky>(C, &plan);
   if (rc != 0) return rc;
   if (n_plans < (int)(sizeof(plans) / sizeof(plans[0]))) plans[n_plans++] = plan;
   *out = plan;
   return 0;
+}
+
+template <class Act>
+cudaError_t launch_bf16(const cudaLaunchConfig_t& cfg, int variant, const CUtensorMap& y_map,
+                        const CUtensorMap& w1_map, const CUtensorMap& w2_map, const bf16* y,
+                        const bf16* b1, const bf16* b2, bf16* out, int H, int W, int C, int Cmid,
+                        int Mpad, int Cp, int K2p, int ms_chunk, int tiles_w, int co_per_block) {
+  const auto kernel = variant == 128 ? res_block_bf16_kernel<128, Act>
+                      : variant == 64 ? res_block_bf16_kernel<64, Act>
+                                      : res_block_bf16_kernel<32, Act>;
+  return cudaLaunchKernelEx(&cfg, kernel, y_map, w1_map, w2_map, y, b1, b2, out, H, W, C, Cmid,
+                            Mpad, Cp, K2p, ms_chunk, tiles_w, co_per_block);
 }
 
 }  // namespace
@@ -1057,7 +1095,7 @@ int yolo_fused_res_block_f32_kpart(const void* y, const void* w1p, const void* b
                                    int W, int C, int Cmid, int kpart, void* stream) {
   if (kpart < 1) return (int)cudaErrorInvalidValue;
   Plan plan;
-  int e = get_plan(0, B, H, W, C, Cmid, &plan);
+  int e = get_plan(0, ActLeaky::ACT, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
   const int N = plan.variant, Mpad = ceil_div(Cmid, FMGRAN) * FMGRAN;
   const int Cp = ceil_div(C, FBK) * FBK, K2 = 9 * Mpad;
@@ -1102,11 +1140,12 @@ int yolo_fused_res_block_f32(const void* y, const void* w1p, const void* b1, con
                                         stream);
 }
 
-int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
-                              const void* w2k, const void* b2, void* out, int B,
-                              int H, int W, int C, int Cmid, void* stream) {
+// act: 1 leaky, 2 Mish.
+int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1, const void* w2k,
+                              const void* b2, void* out, int B, int H, int W, int C, int Cmid,
+                              int act, void* stream) {
   Plan plan;
-  int e = get_plan(1, B, H, W, C, Cmid, &plan);
+  int e = get_plan(1, act, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
   const int Mpad = ceil_div(Cmid, BMGRAN) * BMGRAN, Cp = ceil_div(C, BK) * BK;
   const int K2p = ceil_div(9 * Mpad, BK) * BK, tiles_w = ceil_div(W, TW);
@@ -1128,32 +1167,32 @@ int yolo_fused_res_block_bf16(const void* y, const void* w1k, const void* b1,
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       dim3(ceil_div(H, TH) * tiles_w, plan.splits, B), plan.cs, BNT, plan.smem, stream, attr);
-  const auto kernel = plan.variant == 128 ? res_block_bf16_kernel<128>
-                      : plan.variant == 64 ? res_block_bf16_kernel<64>
-                                           : res_block_bf16_kernel<32>;
-  const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, kernel, y_map, w1_map, w2_map, static_cast<const bf16*>(y),
+  const auto launch = act == ActMish::ACT ? launch_bf16<ActMish> : launch_bf16<ActLeaky>;
+  const cudaError_t le = launch(
+      cfg, plan.variant, y_map, w1_map, w2_map, static_cast<const bf16*>(y),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(b2), static_cast<bf16*>(out), H,
-      W, C, Cmid, Mpad, Cp, K2p,
-      plan.ms_chunk, tiles_w, plan.co_per_block);
+      W, C, Cmid, Mpad, Cp, K2p, plan.ms_chunk, tiles_w, plan.co_per_block);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
-// The launch plan of this dtype for this shape on the current device, as 9
-// ints: variant (N or V channels a warpgroup), splits, cluster size, flat
+
+// The launch plan of this dtype and activation (act as above; fp32: 1) for
+// this shape on the current device, as 9 ints: variant (N or V channels a warpgroup), splits, cluster size, flat
 // (1: raster tiles; 0: 8x8), tiles an image, mid rows a tile, mid channels a
 // block, output channels a block, shared bytes; returns 0 or the
 // cudaError_t.
-int yolo_fused_res_block_plan(int bf16, int B, int H, int W, int C, int Cmid, int* out) {
+int yolo_fused_res_block_plan(int bf16, int act, int B, int H, int W, int C, int Cmid,
+                              int* out) {
   Plan plan;
-  const int e = get_plan(bf16, B, H, W, C, Cmid, &plan);
+  const int e = get_plan(bf16, act, B, H, W, C, Cmid, &plan);
   if (e != 0) return e;
   const int v[9] = {plan.variant, plan.splits, plan.cs, plan.flat, plan.tiles,
                     plan.mrows, plan.ms_chunk, plan.co_per_block, (int)plan.smem};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }
+
 
 const char* yolo_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,6 +1,8 @@
 """High-level detection API: images in, boxes out.
 
-Port of ``yolo_v3_tpu/detector.py`` for bf16, fp32 and int8 serving.  On
+Port of ``yolo_v3_tpu/detector.py`` for bf16, fp32 and int8 serving of
+YOLOv3, and bf16 serving of YOLOv4 (``arch="yolov4"``, ``models/yolov4.py``;
+its heads decode with their ``scale_x_y``).  On
 the device: letterbox or plain resize (cubic) of the whole batch, staged as
 one upload (``ops/letterbox.py::stage_batch``, ``letterbox_batch``), the forward
 (BN-folded float with every residual block on the fused kernel, or int8 on
@@ -35,6 +37,7 @@ import torch
 from yolo_v3_tpu_torch.models import darknet as D
 from yolo_v3_tpu_torch.models import quantized as Q
 from yolo_v3_tpu_torch.models import weights as W
+from yolo_v3_tpu_torch.models import yolov4 as Y4
 from yolo_v3_tpu_torch.ops import boxes as B
 from yolo_v3_tpu_torch.ops.letterbox import (letterbox_batch, letterbox_host,
                                              letterbox_host_u8, stage_batch)
@@ -61,6 +64,7 @@ def detect_fn(
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
     mesh=None,
+    scale_x_y=None,
 ) -> torch.Tensor:
     """Device pipeline on a :class:`~yolo_v3_tpu_torch.models.darknet.
     YoloNetFolded` or :class:`~yolo_v3_tpu_torch.models.quantized.
@@ -77,7 +81,8 @@ def detect_fn(
     ``org_dims`` are this rank's data shard of the batch (``data_shard``),
     ``x`` cut to this rank's stripe of rows under ``space`` > 1 (``stripe``),
     and every rank returns the rows of the whole batch, as JAX's
-    ``detect_fn`` jitted over a mesh does.
+    ``detect_fn`` jitted over a mesh does.  ``scale_x_y``: the heads' decode
+    scales (YOLOv4's), or None.
     """
     space = mesh is not None and mesh.space_size > 1
     xa = x if x.dtype == torch.uint8 else x.to(compute_dtype)
@@ -87,7 +92,8 @@ def detect_fn(
     img_dim = raws[0].shape[1] * STRIPE_ROWS if space else x.shape[1]
     with span("postprocess"):
         res = postprocess_from_raws(raws, config, img_dim, conf_thr=conf_thr,
-                                    nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms)
+                                    nms_thr=nms_thr, is_eval=is_eval, use_nms=use_nms,
+                                    scale_x_y=scale_x_y)
         org = org_dims.to(torch.float32)
         xywh = B.correct_yolo_boxes(res[..., :4], org[:, 0:1], org[:, 1:2],
                                     img_dim, img_dim, is_letterbox=is_letterbox)
@@ -122,6 +128,12 @@ class Detector:
     image on every rank.  Every rank gets the same images.  int8 calibrates on each rank,
     on the same images; a quantized artifact serves every rank the same
     tree without that.
+
+    ``arch``: "yolov3" (the default) or "yolov4", whose trees are
+    ``models/yolov4.py``'s, served in bf16 only (its Mish kernels are bf16),
+    on one device, with ``config`` giving its anchors and sizes; its heads
+    decode with ``models/yolov4.py::SCALE_X_Y`` (``self.scale_x_y``; None
+    for YOLOv3).
     """
 
     def __init__(
@@ -136,9 +148,16 @@ class Detector:
         calib_images=None,
         quantized_tree=None,
         mesh=None,
+        arch: str = "yolov3",
     ):
         if quantized_tree is not None:
             precision = "int8"
+        if arch not in ("yolov3", "yolov4"):
+            raise ValueError(f"arch must be 'yolov3' or 'yolov4', got {arch!r}")
+        if arch == "yolov4" and (precision != "bf16" or mesh is not None):
+            raise ValueError("YOLOv4 serves in bf16 on one device (no fp32, no int8, no mesh)")
+        self.arch = arch
+        self.scale_x_y = Y4.SCALE_X_Y if arch == "yolov4" else None
         if precision not in ("int8", *_DTYPES):
             raise ValueError(
                 f"precision must be 'bf16', 'fp32' or 'int8', got {precision!r}")
@@ -169,7 +188,8 @@ class Detector:
         self.compute_dtype = _DTYPES[precision]
         folded = D.fold_batchnorm(D.cast_params(params, torch.float32, self.device),
                                   D.cast_params(state, torch.float32, self.device))
-        self.model = D.YoloNetFolded(D.cast_params(folded, self.compute_dtype)).eval()
+        net = Y4.YoloV4Folded if arch == "yolov4" else D.YoloNetFolded
+        self.model = net(D.cast_params(folded, self.compute_dtype)).eval()
 
     # -- constructors -----------------------------------------------------
 
@@ -271,7 +291,8 @@ class Detector:
                 x = M.stripe(self.mesh, x, 1).contiguous()
             res = detect_fn(self.model, x, org, self.config, conf_thr, nms_thr,
                             is_eval=is_eval, use_nms=use_nms, is_letterbox=self.letterbox,
-                            compute_dtype=self.compute_dtype, plain=plain, mesh=self.mesh)
+                            compute_dtype=self.compute_dtype, plain=plain, mesh=self.mesh,
+                            scale_x_y=self.scale_x_y)
             with span("readback"):
                 # reorder [x y w h obj prob cls] -> [cls x y w h prob obj]
                 return [rows[:, [6, 0, 1, 2, 3, 5, 4]] for rows in detections_to_lists(res)]

@@ -518,7 +518,7 @@ class _ConvBias(nn.Module):
             x, pad = _halo(x, self.stride, mesh), (0, pad)
         if x.dtype != torch.bfloat16:
             y = F.conv2d(x, self.weight, self.bias, self.stride, pad)
-            return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
+            return self._act(y)
         y = None
         with tf32_conv():
             for c, w in zip(range(0, x.shape[1], TF32_K_CHANNELS), self._fp32_chunks()):
@@ -526,9 +526,11 @@ class _ConvBias(nn.Module):
                                 self.stride, pad)
                 y = part if y is None else y + part
         y = y + self.bias.float()[:, None, None]
-        if self.leaky:
-            y = F.leaky_relu(y, LEAKY_SLOPE)
-        return y.to(torch.bfloat16)
+        return self._act(y).to(torch.bfloat16)
+
+    def _act(self, y):
+        """The activation on the float conv result (a subclass's to change)."""
+        return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
 
 
 class _ResBlock(nn.Module):

@@ -17,9 +17,13 @@ accumulation), with a weight of the same dtype and a residual of the
 input's dtype.  Epilogue, in this order (float32, each step rounded, no
 fused multiply-add)::
 
-    y = acc * scale + bias;  y = leaky(y);  y = y + residual * res_scale
+    y = acc * scale + bias;  y = act(y);  y = y + residual * res_scale
     y = 0 on border rows;    int8: clip(round_half_even(y), -127, 127)
                              bf16: round to nearest even
+
+``act`` is none, leaky (``leaky=True``, the default) or, for bf16 input,
+Mish (``act="mish"``: YOLOv4's CSP 1x1s; ``ops/activations.py``); ``act``
+names it and overrides ``leaky`` when given.
 
 :func:`conv1x1_p2d` and :func:`conv3x3_p2d` launch the CUDA kernel
 (``csrc/conv_p2d.cu``: ``wgmma`` fed by TMA, one kernel in two input
@@ -49,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import _build
+from yolo_v3_tpu_torch.ops import activations as A
 from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 LEAKY = 0.1
@@ -124,16 +129,20 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
+def _act_name(leaky: bool, act) -> str:
+    return act if act is not None else ("leaky" if leaky else "linear")
+
+
 def epilogue_ref(acc, scale, bias, *, leaky=True, residual=None, res_scale=1.0,
-                 valid=None, out_dtype=torch.int8):
+                 valid=None, out_dtype=torch.int8, act=None):
     """The kernels' epilogue on an int32 accumulator [..., N]: float32
-    multiply, add, leaky, residual multiply-add, mask, then requantize to
-    int8 (round half to even, clip to +-127) or round to bf16.  ``valid``
+    multiply, add, the activation (``act``, else leaky or none by
+    ``leaky``), residual multiply-add, mask, then requantize to int8 (round
+    half to even, clip to +-127) or round to bf16 (or float32).  ``valid``
     broadcasts against ``acc``; masked values become 0."""
     y = acc.float() * scale.float()
     y = y + bias.float()
-    if leaky:
-        y = torch.where(y > 0, y, LEAKY * y)
+    y = A.apply(y, _act_name(leaky, act))
     if residual is not None:
         y = y + residual.float() * res_scale
     if valid is not None:
@@ -176,21 +185,21 @@ def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
-                    out_dtype=torch.int8, residual=None, res_scale=1.0):
-    """Plain version of :func:`conv1x1_p2d`."""
+                    out_dtype=torch.int8, residual=None, res_scale=1.0, act=None):
+    """Plain version of :func:`conv1x1_p2d` (also in float32)."""
     acc = _product(x2d, _w2d(w, x2d.shape[1], 1))
     valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
     return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
-                        res_scale=res_scale, valid=valid, out_dtype=out_dtype)
+                        res_scale=res_scale, valid=valid, out_dtype=out_dtype, act=act)
 
 
 def conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, *, leaky=True,
-                    out_dtype=torch.int8, residual=None, res_scale=1.0):
-    """Plain version of :func:`conv3x3_p2d`."""
+                    out_dtype=torch.int8, residual=None, res_scale=1.0, act=None):
+    """Plain version of :func:`conv3x3_p2d` (also in float32)."""
     acc = _product(_tap_rows(x2d, wp), _w2d(w, x2d.shape[1], 9))
     valid = border_mask(x2d.shape[0], hp, wp, x2d.device)[:, None]
     return epilogue_ref(acc, scale, bias, leaky=leaky, residual=residual,
-                        res_scale=res_scale, valid=valid, out_dtype=out_dtype)
+                        res_scale=res_scale, valid=valid, out_dtype=out_dtype, act=act)
 
 
 def res_block_p2d_ref(x2d, w1, s1, b1, w2, s2, b2, hp, wp, *,
@@ -387,7 +396,7 @@ def k_major(w: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
-            residual, res_scale, tiles=None):
+            residual, res_scale, tiles=None, act=None):
     """Check the operands of a CUDA launch and run the kernel; ``tiles``
     (an index of :data:`P2D_TILES`) overrides the planner's tile shape.
     int8 channels that do not make 16-byte rows are zero-padded to a
@@ -409,6 +418,9 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
                          f"C must be a multiple of 8, got {c}")
     if tiles is not None and not 0 <= tiles < len(P2D_TILES):
         raise ValueError(f"{name}: tiles={tiles} is not an index of P2D_TILES")
+    act = _act_name(leaky, act)
+    if act not in A.CODES or (act == "mish" and x2d.dtype != torch.bfloat16):
+        raise ValueError(f"{name}: act {act!r} (linear, leaky; mish for bfloat16 input)")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError(f"{name}: scale and bias must be float32")
     if tuple(scale.shape) != (n,) or tuple(bias.shape) != (n,):
@@ -436,7 +448,7 @@ def _launch(name, taps, x2d, w, scale, bias, hp, wp, leaky, out_dtype,
     args = (x2d.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             0 if residual is None else residual.data_ptr(), float(res_scale),
             out.data_ptr(), int(out_dtype == torch.bfloat16), r, x2d.shape[1], n, hp, wp,
-            int(leaky), torch.cuda.current_stream(x2d.device).cuda_stream)
+            A.CODES[act], torch.cuda.current_stream(x2d.device).cuda_stream)
     if tiles is None:
         fn = getattr(_lib(), f"yolo_{name}_{_IN_DTYPES[x2d.dtype]}")
     else:
@@ -458,7 +470,7 @@ def _on_cuda(name, x2d):
 
 
 def conv1x1_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
-                out_dtype=torch.int8, residual=None, res_scale=1.0):
+                out_dtype=torch.int8, residual=None, res_scale=1.0, act=None):
     """Pointwise conv on the padded-2D layout: ``x2d`` [R, C] int8 or bf16,
     ``w`` [C, N] of the same dtype, ``scale``/``bias`` [N] float32,
     ``residual`` [R, N] of the input's dtype or None; returns [R, N] int8 or
@@ -468,24 +480,24 @@ def conv1x1_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
     if not _on_cuda("conv1x1_p2d", x2d):
         return conv1x1_p2d_ref(x2d, w, scale, bias, hp, wp, leaky=leaky,
                                out_dtype=out_dtype, residual=residual,
-                               res_scale=res_scale)
+                               res_scale=res_scale, act=act)
     out = _launch("conv1x1_p2d", 1, x2d, w, scale, bias, hp, wp, leaky,
-                  out_dtype, residual, res_scale)
+                  out_dtype, residual, res_scale, act=act)
     conv1x1_p2d.launches += 1
     return out
 
 
 def conv3x3_p2d(x2d, w, scale, bias, hp, wp, *, leaky=True,
-                out_dtype=torch.int8, residual=None, res_scale=1.0):
+                out_dtype=torch.int8, residual=None, res_scale=1.0, act=None):
     """3x3 stride-1 SAME conv on the padded-2D layout: ``w`` [3, 3, C, N]
     (or [9, C, N], [9C, N]); otherwise as :func:`conv1x1_p2d`.
     ``conv3x3_p2d.launches`` counts kernel launches."""
     if not _on_cuda("conv3x3_p2d", x2d):
         return conv3x3_p2d_ref(x2d, w, scale, bias, hp, wp, leaky=leaky,
                                out_dtype=out_dtype, residual=residual,
-                               res_scale=res_scale)
+                               res_scale=res_scale, act=act)
     out = _launch("conv3x3_p2d", 9, x2d, w, scale, bias, hp, wp, leaky,
-                  out_dtype, residual, res_scale)
+                  out_dtype, residual, res_scale, act=act)
     conv3x3_p2d.launches += 1
     return out
 

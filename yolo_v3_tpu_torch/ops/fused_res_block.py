@@ -8,7 +8,9 @@ accumulation.  Rounding points follow the reference XLA chain
 (``darknet._conv_bias_leaky`` twice, then ``y + r``): conv1's activation is
 rounded to ``y.dtype``, conv2's activation is rounded to ``y.dtype`` and then
 added to ``y`` in that dtype.  The 3x3's zero padding applies to conv1's
-output (out-of-image ``mid`` is 0, not ``leaky(b1)``).
+output (out-of-image ``mid`` is 0, not ``leaky(b1)``).  ``act="mish"`` puts
+Mish in place of leaky on both convs (YOLOv4's CSPDarknet53 blocks,
+``ops/activations.py``; bf16 kernel only), for any ``Cmid``, ``C`` included.
 
 :func:`fused_res_block` launches the CUDA kernel (``csrc/fused_res_block.cu``)
 for a CUDA tensor and uses the plain version :func:`fused_res_block_ref` for a
@@ -34,9 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import _build
+from yolo_v3_tpu_torch.ops import activations as A
 from yolo_v3_tpu_torch.utils.precision import full_fp32
-
-LEAKY_SLOPE = 0.1
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the fp32 kernel's padding of its weight operands (FBK and FMGRAN in the
@@ -76,24 +77,21 @@ def _check_shapes(y, w1, b1, w2, b2):
     return w1
 
 
-def _leaky(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x > 0, x, LEAKY_SLOPE * x)
-
-
-def fused_res_block_ref(y, w1, b1, w2, b2):
+def fused_res_block_ref(y, w1, b1, w2, b2, act="leaky"):
     """Plain PyTorch version: fp32 convolutions (TF32 off) with the kernel's
     rounding points.  ``y`` [B, H, W, C]; ``w1`` [C, Cmid] or [1, 1, C, Cmid];
-    ``w2`` [3, 3, Cmid, C]; returns [B, H, W, C] in ``y.dtype``."""
+    ``w2`` [3, 3, Cmid, C]; ``act`` "leaky" or "mish"; returns [B, H, W, C]
+    in ``y.dtype``."""
     w1 = _check_shapes(y, w1, b1, w2, b2)
     dt = y.dtype
     x = y.float().permute(0, 3, 1, 2)                      # NCHW view
     k1 = w1.float().t()[:, :, None, None]                  # [Cmid, C, 1, 1]
     k2 = w2.float().permute(3, 2, 0, 1)                    # OIHW
     with full_fp32():
-        mid = _leaky(F.conv2d(x, k1) + b1.float()[:, None, None]).to(dt)
+        mid = A.apply(F.conv2d(x, k1) + b1.float()[:, None, None], act).to(dt)
         # padding=1 zero-pads conv1's OUTPUT, as the reference does
-        r = _leaky(F.conv2d(mid.float(), k2, padding=1)
-                   + b2.float()[:, None, None]).to(dt)
+        r = A.apply(F.conv2d(mid.float(), k2, padding=1)
+                    + b2.float()[:, None, None], act).to(dt)
     return y + r.permute(0, 2, 3, 1)
 
 
@@ -179,13 +177,14 @@ def bf16_weights(w1: torch.Tensor, w2: torch.Tensor):
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
     """(the C function ``yolo_fused_res_block_<name>``, the error-string
-    function); "f32", "f32_kpart" and "bf16" launch, "plan" plans."""
+    function); "f32", "f32_kpart" and "bf16" (an activation code last)
+    launch, "plan" plans."""
     lib = _build.load("fused_res_block")
     fn = getattr(lib, f"yolo_fused_res_block_{name}")
     if name == "plan":
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     else:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * (6 if name == "f32_kpart" else 5)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * (5 if name == "f32" else 6)
                        + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
@@ -198,9 +197,10 @@ _PLAN_KEYS = ("variant", "splits", "cluster", "flat", "tiles", "mid_rows", "mid_
 
 
 def plan(b: int, h: int, w: int, c: int, cmid: int,
-         dtype: torch.dtype = torch.float32) -> dict:
-    """The launch plan of the ``dtype`` kernel for [b, h, w, c] with ``cmid``
-    mid channels on the current CUDA device: ``variant`` (channels a
+         dtype: torch.dtype = torch.float32, act: str = "leaky") -> dict:
+    """The launch plan of the ``dtype`` kernel (with activation ``act``) for
+    [b, h, w, c] with ``cmid`` mid channels on the current CUDA device:
+    ``variant`` (channels a
     warpgroup), ``splits`` (blocks a tile's output channels are split
     over), ``cluster``, ``geometry`` ("flat": 64 pixels in raster order;
     "8x8"), ``tiles`` an image, ``mid_rows`` a tile, ``mid_per_block`` and
@@ -208,7 +208,7 @@ def plan(b: int, h: int, w: int, c: int, cmid: int,
     bytes a block)."""
     fn, err_str = _kernel("plan")
     out = (ctypes.c_int * len(_PLAN_KEYS))()
-    rc = fn(int(dtype == torch.bfloat16), b, h, w, c, cmid, out)
+    rc = fn(int(dtype == torch.bfloat16), A.CODES[act], b, h, w, c, cmid, out)
     if rc != 0:
         raise RuntimeError(f"fused_res_block: no {_KERNEL_DTYPES[dtype]} launch for "
                            f"{(b, h, w, c, cmid)}: {err_str(rc).decode()}")
@@ -225,21 +225,21 @@ def cluster_size(b: int, h: int, w: int, c: int, cmid: int,
     return plan(b, h, w, c, cmid, dtype)["cluster"]
 
 
-def fused_res_block(y, w1, b1, w2, b2):
+def fused_res_block(y, w1, b1, w2, b2, act="leaky"):
     """Fused residual block on [B, H, W, C].
 
     A CUDA ``y`` runs the hand-written kernel (every operand on the same
     card, one dtype, float32 or bfloat16, contiguous; y 16-byte aligned with
-    C % 4 == 0 in float32, C % 8 == 0 in bfloat16) or raises; a CPU ``y``
-    runs :func:`fused_res_block_ref`.  ``fused_res_block.launches`` counts
-    kernel launches.
+    C % 4 == 0 in float32, C % 8 == 0 in bfloat16; ``act`` "mish" in
+    bfloat16 only) or raises; a CPU ``y`` runs :func:`fused_res_block_ref`.
+    ``fused_res_block.launches`` counts kernel launches.
     """
     if y.device.type == "cpu":
-        return fused_res_block_ref(y, w1, b1, w2, b2)
-    return _launch(y, w1, b1, w2, b2)
+        return fused_res_block_ref(y, w1, b1, w2, b2, act)
+    return _launch(y, w1, b1, w2, b2, act=act)
 
 
-def _launch(y, w1, b1, w2, b2, kpart=None):
+def _launch(y, w1, b1, w2, b2, kpart=None, act="leaky"):
     """The kernel on CUDA operands; ``kpart`` (fp32 only) sets the steps of
     K = 32 a partial sum spans (default ``F32_KPART``)."""
     if y.device.type != "cuda":
@@ -260,16 +260,19 @@ def _launch(y, w1, b1, w2, b2, kpart=None):
                          "16-byte aligned")
     if kpart is not None and (y.dtype != torch.float32 or kpart < 1):
         raise ValueError(f"fused_res_block: kpart {kpart} (fp32 only, >= 1)")
+    if act not in ("leaky", "mish") or (act == "mish" and y.dtype != torch.bfloat16):
+        raise ValueError(f"fused_res_block: act {act!r} (leaky; mish in bfloat16 only)")
     b, h, w, c = y.shape
     cmid = w1.shape[1]
     out = torch.empty_like(y)
     name = _KERNEL_DTYPES[y.dtype] + ("_kpart" if kpart is not None else "")
+    # f32_kpart: the partial depth; bf16: the activation code
+    extra = {"f32": (), "f32_kpart": (kpart,), "bf16": (A.CODES[act],)}[name]
     fn, err_str = _kernel(name)
     w1, w2 = (tf32_weights if y.dtype == torch.float32 else bf16_weights)(w1_arg, w2)
     ptrs = (y, w1, b1, w2, b2, out)
     with torch.cuda.device(y.device):
-        rc = fn(*[t.data_ptr() for t in ptrs], b, h, w, c, cmid,
-                *(() if kpart is None else (kpart,)),
+        rc = fn(*[t.data_ptr() for t in ptrs], b, h, w, c, cmid, *extra,
                 torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

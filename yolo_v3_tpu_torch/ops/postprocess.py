@@ -21,6 +21,10 @@ NMS is greedy in score order within each class (boxes shifted by
 Output rows are [B, M, 8]: (x1, y1, x2, y2, obj, prob, cls, valid), invalid
 rows zeroed.
 
+Every decode of the raw heads takes an optional ``scale_x_y``, one per head
+in the heads' order (YOLOv4's; ``ops/decode.py::xy_offset``); without it
+(None, YOLOv3) each path decodes as it did, operation for operation.
+
 Not ported (ROADMAP's do-not-port list): ``nms_blocked`` and
 ``nms_sequential`` (they pick what :func:`nms_fixed` picks), the truncated
 top-k eval path of ``postprocess_from_raws`` (``eval_grid_nms=False``, or
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from yolo_v3_tpu_torch.ops import boxes as B
+from yolo_v3_tpu_torch.ops.decode import xy_offset
 from yolo_v3_tpu_torch.utils.profiling import span
 
 # Larger than any supported input dimension (608) so class-offset boxes of
@@ -315,12 +320,13 @@ def postprocess(
 # Decode constants of flattened candidates
 # ---------------------------------------------------------------------------
 
-def _scale_constants(shapes, anchor_masks, anchors, img_dim, device=None):
+def _scale_constants(shapes, anchor_masks, anchors, img_dim, device=None, scale_x_y=None):
     """Per-candidate decode constants over all scales: (cx, cy, anchor w,
-    anchor h, stride), each [N_total] float32, rows in ``decode_all``'s
-    order (scales in order, then (h, w, a))."""
-    cxs, cys, aws, ahs, strides = [], [], [], [], []
-    for (h, w), mask in zip(shapes, anchor_masks):
+    anchor h, stride), and each candidate's ``scale_x_y`` where the heads
+    have one, each [N_total] float32, rows in ``decode_all``'s order
+    (scales in order, then (h, w, a))."""
+    cxs, cys, aws, ahs, strides, sxys = [], [], [], [], [], []
+    for i_s, ((h, w), mask) in enumerate(zip(shapes, anchor_masks)):
         a = len(mask)
         cxs.append(np.tile(np.arange(w, dtype=np.float32)[None, :, None], (h, 1, a)).ravel())
         cys.append(np.tile(np.arange(h, dtype=np.float32)[:, None, None], (1, w, a)).ravel())
@@ -328,21 +334,23 @@ def _scale_constants(shapes, anchor_masks, anchors, img_dim, device=None):
             anchor = np.asarray([anchors[i][j] for i in mask], np.float32)
             out.append(np.tile(anchor[None, None, :], (h, w, 1)).ravel())
         strides.append(np.full(h * w * a, img_dim / h, np.float32))
+        if scale_x_y is not None:
+            sxys.append(np.full(h * w * a, scale_x_y[i_s], np.float32))
     consts = []
-    for v in (cxs, cys, aws, ahs, strides):
+    for v in (cxs, cys, aws, ahs, strides) + ((sxys,) if scale_x_y is not None else ()):
         host = np.concatenate(v)
         with span("h2d"):
             consts.append(torch.from_numpy(host).to(device))
     return tuple(consts)
 
 
-def _constants_from_index(gi, shapes, anchor_masks, anchors, img_dim, n_a):
+def _constants_from_index(gi, shapes, anchor_masks, anchors, img_dim, n_a, scale_x_y=None):
     """The decode constants of :func:`_scale_constants` for flattened
     candidate indices ``gi``, computed from the index (no table gather)."""
     zeros = torch.zeros(gi.shape, dtype=torch.float32, device=gi.device)
-    cx, cy, aw, ah, st = (zeros.clone() for _ in range(5))
+    cx, cy, aw, ah, st, sxy = (zeros.clone() for _ in range(6))
     base = 0
-    for (h, w), mask in zip(shapes, anchor_masks):
+    for j_s, ((h, w), mask) in enumerate(zip(shapes, anchor_masks)):
         n_s = h * w * n_a
         in_s = (gi >= base) & (gi < base + n_s)
         local = gi - base
@@ -358,15 +366,18 @@ def _constants_from_index(gi, shapes, anchor_masks, anchors, img_dim, n_a):
         aw = torch.where(in_s, aw_s, aw)
         ah = torch.where(in_s, ah_s, ah)
         st = torch.where(in_s, img_dim / h, st)
+        if scale_x_y is not None:
+            sxy = torch.where(in_s, float(scale_x_y[j_s]), sxy)
         base += n_s
-    return cx, cy, aw, ah, st
+    return (cx, cy, aw, ah, st) + ((sxy,) if scale_x_y is not None else ())
 
 
-def _decode_boxes(rows, cx, cy, aw, ah, st) -> torch.Tensor:
-    """Corner boxes of gathered raw rows [..., >= 4] with their constants."""
+def _decode_boxes(rows, cx, cy, aw, ah, st, sxy=None) -> torch.Tensor:
+    """Corner boxes of gathered raw rows [..., >= 4] with their constants
+    (``sxy``: each row's ``scale_x_y``, or None)."""
     r = rows[..., :4].float()
-    bx = (torch.sigmoid(r[..., 0]) + cx) * st
-    by = (torch.sigmoid(r[..., 1]) + cy) * st
+    bx = (xy_offset(r[..., 0], sxy) + cx) * st
+    by = (xy_offset(r[..., 1], sxy) + cy) * st
     bw = torch.exp(r[..., 2]) * aw
     bh = torch.exp(r[..., 3]) * ah
     return torch.stack([bx - bw / 2, by - bh / 2, bx + bw / 2, by + bh / 2], dim=-1)
@@ -377,7 +388,8 @@ def _decode_boxes(rows, cx, cy, aw, ah, st) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _postprocess_fast_display(raws, config, img_dim, conf_thr, nms_thr,
-                              use_nms: bool, per_scale_k: int) -> torch.Tensor:
+                              use_nms: bool, per_scale_k: int,
+                              scale_x_y=None) -> torch.Tensor:
     """Display-mode postprocess with per-scale candidate selection: each
     scale's top ``per_scale_k`` rows by score (argmax class prob x obj, 0
     below ``conf_thr``), decoded, then class-wise greedy NMS over their union.
@@ -387,9 +399,10 @@ def _postprocess_fast_display(raws, config, img_dim, conf_thr, nms_thr,
     A = config.anchors_per_scale
 
     boxes_l, score_l, cls_l, obj_l = [], [], [], []
-    for raw, mask in zip(raws, config.anchor_masks):
+    for j_s, (raw, mask) in enumerate(zip(raws, config.anchor_masks)):
         b, h, w, _ = raw.shape
         stride = img_dim / h
+        sxy = None if scale_x_y is None else scale_x_y[j_s]
         dev = raw.device
         with span("h2d"):
             aw_c = torch.tensor([config.anchors[i][0] for i in mask],
@@ -411,8 +424,8 @@ def _postprocess_fast_display(raws, config, img_dim, conf_thr, nms_thr,
         cell = top_i // A
         gx = (cell % w).float()
         gy = (cell // w).float()
-        bx = (torch.sigmoid(row[..., 0]) + gx) * stride
-        by = (torch.sigmoid(row[..., 1]) + gy) * stride
+        bx = (xy_offset(row[..., 0], sxy) + gx) * stride
+        by = (xy_offset(row[..., 1], sxy) + gy) * stride
         bw = torch.exp(row[..., 2]) * aw_c[a_i]
         bh = torch.exp(row[..., 3]) * ah_c[a_i]
         boxes_l.append(torch.stack(
@@ -435,7 +448,7 @@ def _postprocess_fast_display(raws, config, img_dim, conf_thr, nms_thr,
 
 
 def _postprocess_eval_grid(flat, obj, cls_l, shapes, config, img_dim, conf_thr,
-                           nms_thr, k) -> torch.Tensor:
+                           nms_thr, k, scale_x_y=None) -> torch.Tensor:
     """Eval mode: the top ``k`` boxes by their best pair score (every box when
     there are fewer), decoded, then :func:`nms_pairs_grid` over their pair
     grid."""
@@ -453,7 +466,7 @@ def _postprocess_eval_grid(flat, obj, cls_l, shapes, config, img_dim, conf_thr,
     sub_probs = torch.sigmoid(rows[..., 5:].float()) * torch.sigmoid(sub_obj_l)[..., None]
     sub_masked = torch.where(sub_probs > conf_thr, sub_probs, torch.zeros_like(sub_probs))
     consts = _constants_from_index(bi, shapes, config.anchor_masks, config.anchors,
-                                   img_dim, config.anchors_per_scale)
+                                   img_dim, config.anchors_per_scale, scale_x_y)
     boxes_all = _decode_boxes(rows, *consts)                           # [B, n_box, 4]
     sel_box, sel_cls, sel_score, valid = nms_pairs_grid(sub_masked, boxes_all, nms_thr,
                                                         config.max_detections)
@@ -464,12 +477,13 @@ def _postprocess_eval_grid(flat, obj, cls_l, shapes, config, img_dim, conf_thr,
 
 def postprocess_from_raws(raws, config, img_dim: int, conf_thr: float,
                           nms_thr: float, is_eval: bool = False,
-                          use_nms: bool = True) -> torch.Tensor:
+                          use_nms: bool = True, scale_x_y=None) -> torch.Tensor:
     """Raw NHWC heads (coarse first) -> [B, M, 8] detection rows in
     input-image pixels, without materializing the decoded [B, N, 5+C] rows:
     scores come from the logits, and only the selected rows are decoded.
     Equal to :func:`~yolo_v3_tpu_torch.ops.decode.decode_all` +
-    :func:`postprocess` up to float rounding."""
+    :func:`postprocess` up to float rounding.  ``scale_x_y``: one per head,
+    or None."""
     if is_eval:
         if config.eval_approx_topk:
             raise NotImplementedError(
@@ -481,7 +495,7 @@ def postprocess_from_raws(raws, config, img_dim: int, conf_thr: float,
     elif config.display_per_scale_topk > 0:
         return _postprocess_fast_display(
             raws, config, img_dim, conf_thr, nms_thr, use_nms,
-            config.display_per_scale_topk)
+            config.display_per_scale_topk, scale_x_y)
 
     C = config.num_classes
     n_a = config.anchors_per_scale
@@ -495,7 +509,7 @@ def postprocess_from_raws(raws, config, img_dim: int, conf_thr: float,
     if is_eval:
         k = min(config.eval_pre_nms_topk, n_total * C)
         return _postprocess_eval_grid(flat, obj, cls_l, shapes, config, img_dim,
-                                      conf_thr, nms_thr, k)
+                                      conf_thr, nms_thr, k, scale_x_y)
 
     # global top-k display: the best pre_nms_topk boxes by their argmax class
     k = min(config.pre_nms_topk, n_total)
@@ -503,10 +517,9 @@ def postprocess_from_raws(raws, config, img_dim: int, conf_thr: float,
     score = torch.where(score > conf_thr, score, torch.zeros_like(score))
     top_score, top_i = _top_k(score, k)
     top_cls = torch.gather(cls_l.argmax(dim=-1), 1, top_i).float()
-    cx, cy, aw, ah, st = _scale_constants(shapes, config.anchor_masks, config.anchors,
-                                          img_dim, flat.device)
-    boxes = _decode_boxes(_gather_rows(flat, top_i), cx[top_i], cy[top_i], aw[top_i],
-                          ah[top_i], st[top_i])
+    consts = _scale_constants(shapes, config.anchor_masks, config.anchors, img_dim,
+                              flat.device, scale_x_y)
+    boxes = _decode_boxes(_gather_rows(flat, top_i), *(c[top_i] for c in consts))
     return _select(boxes, top_score, top_cls, torch.gather(obj, 1, top_i), nms_thr,
                    config.max_detections, use_nms, presorted=True)
 

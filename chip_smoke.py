@@ -3,6 +3,7 @@ paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --yolov4      # phase 11 alone
+    python3 chip_smoke.py --conv-down   # phase 3b alone
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -10,12 +11,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build: compile every kernel of the paths from ``yolo_v3_tpu_torch/csrc``
    (the batched letterbox, ``letterbox.cu``, too), one nvcc per source, all
    started together; print each kernel's ptxas report (registers, spills)
-   and, for the three ``wgmma`` sources, fail on
+   and, for the four ``wgmma`` sources, fail on
    a ``C75xx`` warning (``fused_res_block``: other than C7519, the
    ``warpgroup.arrive`` ptxas inserts before its register-A ``wgmma``), on
    SASS where a ``WARPGROUP.DEPBAR.LE gsb0, 0x0`` follows every ``HGMMA``
    (bf16, tf32) or ``IGMMA`` (int8), each ``wgmma`` waiting for the one
-   before, and on any kernel of the three with no GMMA at all (the fp32
+   before, and on any kernel of the four with no GMMA at all (the fp32
    residual block's included: 3xTF32 on ``wgmma``);
 3. kernel vs plain, with the device time of both (CUDA-graph replay), the
    card's bound for the same work and, where one PyTorch call computes the
@@ -33,13 +34,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launches them at batch 8 (the p2d convs with the tile shape the planner
    picks and the host time of one launch; the 1x1s beside cuBLASLt's int8
    product alone, ``torch._int_mm``, which has no epilogue);
+3b. the bf16 stem and stride-2 conv kernel (``conv_down.cu``, also alone,
+   ``--conv-down``) at every such conv of YOLOv3-416 (leaky) and YOLOv4-608
+   (Mish; PANet's two leaky) at batch 8: one rounding against an fp32 conv
+   with TF32 off (the card tests' limits), the tile plan, and the device time
+   of the kernel, its plain version (the chunked TF32 convs) and one cuDNN bf16
+   conv with bias and activation (library), beside the bound, summed per
+   forward; alone, one bf16 ``detect`` of each model then counts 6 and 8
+   launches (in the whole run phases 4 and 11 count them, and phases 6-10
+   count the 6 in every bf16 YOLOv3 run, the stripes' too);
 4. main paths: full-width YOLOv3-416 (80 classes, blocks (1,2,8,8,4)) from
    ``torch.Generator`` seed 0, written as darknet ``.weights`` and loaded
    through ``Detector.from_darknet_weights``; ``detect`` on 8 seeded uint8
    images of assorted sizes in bf16, fp32 and int8 (calibrated on the same
    8 images), each path's launch counts set to 0 just before its run and
    read just after (the batched letterbox, ``csrc/letterbox.cu``, once a
-   detect), and its outputs checked against the plain path, which shares
+   detect; bf16's stem and 5 downs on ``csrc/conv_down.cu``, fp32's on
+   cuDNN), and its outputs checked against the plain path, which shares
    the preprocess; so the letterbox kernel is held on its own against its
    plain version (``letterbox_batch_ref``) on the same card operands, at
    these 8 images and at 32 of COCO val's six sizes (the benchmark's), both
@@ -147,7 +158,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    versions and the bound; ``Detector(arch="yolov4")`` with the benchmark
    cell's seeded weights, ``detect`` on 32 seeded images of COCO val's six
    sizes at 608, launch counts set to 0 just before (23 Mish blocks, 38 1x1
-   and 13 3x3 padded-2D convs, one letterbox), heads within 5e-2 *
+   and 13 3x3 padded-2D convs, 8 stem / stride-2 convs, one letterbox),
+   heads within 5e-2 *
    max|head| of the plain path, e2e and forward times.
 
 TF32 is turned off only around this script's own plain references and
@@ -165,6 +177,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -181,16 +194,18 @@ COCO_WH = ((640, 480), (480, 640), (640, 427), (500, 375), (640, 360), (427, 640
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),      # summation order
        torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}  # 2 bf16 ulps
 NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-SOURCES = ("fused_res_block", "conv_p2d", "fused_entry", "letterbox")
+SOURCES = ("fused_res_block", "conv_p2d", "fused_entry", "letterbox", "conv_down")
 # the sources whose kernels run wgmma, and the ptxas warnings each may carry
 # (C7519: a warpgroup.arrive inserted before a wgmma whose A is in
 # registers, which fused_res_block's bf16 conv2 and both fp32 convs have;
 # not a serialization)
-WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",), "fused_entry": ()}
+WGMMA_SOURCES = {"conv_p2d": (), "fused_res_block": ("C7519",), "fused_entry": (),
+                 "conv_down": ()}
 # a kernel's name, its input type (conv_p2d_kernel's template argument) and
-# its integer template arguments, in a mangled name
-KERNEL_NAME = re.compile(r"\d((?:conv_p2d|res_block)_(?:\w+?_)?kernel|fused_entry(?:_kernel)?)"
-                         r"I?(?:N\w*?\d(Bf16In|I8In)E)?((?:Li\d+E)*)")
+# its integer and bool template arguments, in a mangled name
+KERNEL_NAME = re.compile(r"\d((?:conv_p2d|conv_down|res_block)_(?:\w+?_)?kernel|"
+                         r"fused_entry(?:_kernel)?)"
+                         r"I?(?:N\w*?\d(Bf16In|I8In)E)?((?:L[ib]\d+E)*)")
 IN_TYPES = {"Bf16In": "bf16", "I8In": "i8"}
 # Every padded-2D conv the int8 forward launches at 416: (taps, grid H = W,
 # C, N, residual, out) -> launches per forward.  Residual-block convs first
@@ -218,7 +233,7 @@ BF16_CONVS = {
     (1, 52, 384, 128, True): 1, (1, 52, 256, 128, True): 2,
     (9, 52, 128, 256, True): 3, (1, 52, 256, 255, False): 1,
 }
-BF16_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 14, "conv3x3_p2d": 9}
+BF16_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 14, "conv3x3_p2d": 9, "conv_down": 6}
 P2D_BF16_TOL = dict(rtol=2e-2, atol=2e-2)     # the JAX suite's bf16 tolerance
 # residual blocks of the int8 forward: (grid, C) -> blocks (stage 0 is in
 # the entry)
@@ -253,7 +268,27 @@ V4_CONVS = {
     (1, 19, 1024, 255, "linear"): 1, (1, 38, 512, 255, "linear"): 1,
     (1, 76, 256, 255, "linear"): 1,
 }
-V4_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 38, "conv3x3_p2d": 13}
+V4_LAUNCHES = {"fused_res_block": 23, "conv1x1_p2d": 38, "conv3x3_p2d": 13, "conv_down": 8}
+# The bf16 stem and stride-2 convs of both forwards: (model, name, C, N,
+# input H = W, stride, activation); one launch each a forward
+CONV_DOWN_SHAPES = (
+    ("yolov3-416", "stem", 3, 32, 416, 1, "leaky"),
+    ("yolov3-416", "down0", 32, 64, 416, 2, "leaky"),
+    ("yolov3-416", "down1", 64, 128, 208, 2, "leaky"),
+    ("yolov3-416", "down2", 128, 256, 104, 2, "leaky"),
+    ("yolov3-416", "down3", 256, 512, 52, 2, "leaky"),
+    ("yolov3-416", "down4", 512, 1024, 26, 2, "leaky"),
+    ("yolov4-608", "stem", 3, 32, 608, 1, "mish"),
+    ("yolov4-608", "down0", 32, 64, 608, 2, "mish"),
+    ("yolov4-608", "down1", 64, 128, 304, 2, "mish"),
+    ("yolov4-608", "down2", 128, 256, 152, 2, "mish"),
+    ("yolov4-608", "down3", 256, 512, 76, 2, "mish"),
+    ("yolov4-608", "down4", 512, 1024, 38, 2, "mish"),
+    ("yolov4-608", "pan-down0", 128, 256, 76, 2, "leaky"),
+    ("yolov4-608", "pan-down1", 256, 512, 38, 2, "leaky"),
+)
+CONV_DOWN_LAUNCHES = {"yolov3-416": BF16_LAUNCHES["conv_down"],
+                      "yolov4-608": V4_LAUNCHES["conv_down"]}
 # The card's published peaks (H100 SXM, dense, at 700 W): the bound of a
 # kernel is the larger of its operations over the peak of their type and
 # its bytes (each input read once, each output written once) over HBM's rate.
@@ -284,11 +319,12 @@ def short_name(mangled):
     m = KERNEL_NAME.search(mangled)
     if m is None:
         return mangled[:60]
-    args = ([IN_TYPES[m.group(2)]] if m.group(2) else []) + re.findall(r"Li(\d+)E", m.group(3))
+    args = ([IN_TYPES[m.group(2)]] if m.group(2) else []) + re.findall(r"L[ib](\d+)E",
+                                                                        m.group(3))
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def check_build(card, libs):
+def check_build(card, libs, sources=SOURCES):
     """Phase 2's report: every kernel's registers and spills from ptxas;
     for the wgmma sources, no unexpected C75xx warning and no serialized
     wgmma in the SASS (cuobjdump): per kernel, fewer waits for all wgmma
@@ -298,7 +334,7 @@ def check_build(card, libs):
     from yolo_v3_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    for name, lib in zip(SOURCES, libs):
+    for name, lib in zip(sources, libs):
         report, kernel, spills = _build.build_log(name), None, ""
         for line in report.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -851,6 +887,7 @@ def main_path(card, weights_path, imgs, e2e):
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import weights as W
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
     from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
@@ -870,17 +907,19 @@ def main_path(card, weights_path, imgs, e2e):
         check(det.model.num_res_blocks == n_blocks, "23 residual blocks")
 
         counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                    "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
+                    "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d,
+                    "conv_down": CD.conv_down}
         for fn in counters.values():
             fn.launches = 0
         letterbox_batch.launches = 0
         rows = det.detect(imgs)
         torch.cuda.synchronize()
         launches[dtype] = {k: fn.launches for k, fn in counters.items()}
-        # fp32 runs its heads on cuDNN: the padded-2D kernels have no fp32 mode
+        # fp32 runs its heads, stem and downs on cuDNN: the padded-2D and
+        # stem / down kernels have no fp32 mode
         want = (dict(BF16_LAUNCHES, res_block_p2d=0) if dtype == torch.bfloat16 else
                 dict(fused_res_block=n_blocks, conv1x1_p2d=0, conv3x3_p2d=0,
-                     res_block_p2d=0))
+                     res_block_p2d=0, conv_down=0))
         check(launches[dtype] == want,
               f"{precision} launches in one forward {launches[dtype]}, want {want}")
         check(letterbox_batch.launches == 1,
@@ -987,6 +1026,136 @@ def letterbox_path(card, imgs, launches):
                 bound_ms=b_ms, bound_by="bytes")
 
 
+def conv_down_path(card):
+    """Phase 3b: the bf16 stem and stride-2 conv kernel at every such conv
+    of both forwards at batch 8 (:data:`CONV_DOWN_SHAPES`), held to the
+    card tests' single-rounding limits against an fp32 conv with TF32 off,
+    bias and activation in fp32; the tile plan; and the device time (CUDA-graph
+    replay) of the kernel, its plain version (the chunked TF32 convs, bias
+    and activation in float32, one cast) and one cuDNN bf16 conv with bias
+    and activation (library: its own roundings), beside the bound, summed
+    per forward.  Returns {model: {ms, plain_ms, library_ms, bound_ms,
+    bound_by, worst_off_share}}."""
+    from yolo_v3_tpu_torch.models import darknet as D
+    from yolo_v3_tpu_torch.ops import activations as A
+    from yolo_v3_tpu_torch.ops import conv_down as CD
+    from yolo_v3_tpu_torch.utils.precision import full_fp32
+
+    def ordered(a):
+        bits = (a.float().view(torch.int32) >> 16).to(torch.int64) & 0xFFFF
+        return torch.where(bits >= 0x8000, -(bits & 0x7FFF), bits)
+
+    acts = {"leaky": lambda y: F.leaky_relu(y, 0.1), "mish": A.mish}
+    summary = {}
+    for model, name, c, n, hw, stride, act in CONV_DOWN_SHAPES:
+        gen = torch.Generator().manual_seed(c + hw)
+        w = (torch.randn(3, 3, c, n, generator=gen) / np.sqrt(9 * c)).to(torch.bfloat16)
+        b = (torch.randn(n, generator=gen) * 0.3).to(torch.bfloat16)
+        conv = D._ConvBias({"w": w, "b": b}, stride=stride, act=act).cuda()
+        x = torch.randn(BATCH, c, hw, hw, generator=gen).to("cuda", torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got = conv(x)
+            with full_fp32():
+                ref = F.conv2d(x.float(), conv.weight.float(), None, stride, 1)
+            ref = acts[act](ref + conv.bias.float()[:, None, None]).to(torch.bfloat16)
+            step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126)))
+                              - 7)
+            over = ((got.float() - ref.float()).abs() - step - C1_ABS_FLOOR).max().item()
+            share = (ordered(got) != ordered(ref)).float().mean().item()
+            del ref, step
+            check(over <= 0 and share < C1_MAX_OFF_SHARE,
+                  f"conv_down {model} {name}: {share:.4%} of outputs off the single-rounding "
+                  f"reference (beyond one step by {over})")
+            k_ms = device_ms(lambda: conv(x))
+            p_ms = device_ms(lambda: conv(x, plain=True))
+
+            def library():
+                y = F.conv2d(x, conv.weight, conv.bias, stride, 1)
+                return F.mish(y) if act == "mish" else F.leaky_relu(y, 0.1)
+
+            l_ms = device_ms(library)
+        ho = got.shape[2]
+        ops = 2 * BATCH * ho * ho * n * 9 * c
+        nbytes = 2 * (BATCH * hw * hw * c + 9 * c * n + BATCH * ho * ho * n) + 4 * n
+        acc = summary.setdefault(model, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                             worst_off_share=0.0))
+        b_ms, by = add_bound(acc, 1, ops, nbytes, "bf16")
+        acc["ms"] += k_ms
+        acc["plain_ms"] += p_ms
+        acc["library_ms"] += l_ms
+        acc["worst_off_share"] = max(acc["worst_off_share"], share)
+        tiles = "stem" if c == 3 else CD.plan_on_device(BATCH, hw, hw, c, n)
+        log(f"kernel conv_down {model} {name} [{BATCH},{hw},{hw},{c}]->{n} {act} "
+            f"tiles={tiles}: "
+            f"off the single-rounding reference {share:.5%} "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({by}) roofline {100 * b_ms / k_ms:.1f}% | {card}")
+        del conv, x, got
+        torch.cuda.empty_cache()
+    for model, acc in summary.items():
+        finish_bound(acc)
+        log(f"kernel conv_down per {model} forward at batch {BATCH}: kernel_ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} library_ms={acc['library_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.4f} ({acc['bound_by']}), roofline "
+            f"{100 * acc['bound_ms'] / acc['ms']:.1f}%, worst off-share "
+            f"{acc['worst_off_share']:.5%} | {card}")
+    return summary
+
+
+def conv_down_launches(card):
+    """One bf16 ``detect`` of each model on seeded weights launches the
+    stem / stride-2 kernel 6 (YOLOv3-416) and 8 (YOLOv4-608) times."""
+    from portbench import weights_yolov4
+    from yolo_v3_tpu_torch.detector import Detector
+    from yolo_v3_tpu_torch.models import darknet as D
+    from yolo_v3_tpu_torch.models import yolov4 as Y4
+    from yolo_v3_tpu_torch.ops import conv_down as CD
+    from yolo_v3_tpu_torch.utils.config import YoloConfig
+
+    gen = torch.Generator().manual_seed(0)
+    params, state = D.init_yolonet(gen, 80, blocks=DARKNET53_BLOCKS)
+    dets = {"yolov3-416": (Detector(params, state, YoloConfig(), precision="bf16",
+                                    device="cuda"), make_images())}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                           "configs", "yolov4-608-bf16.json")) as f:
+        cfg = json.load(f)
+    imgs = make_images(V4_BATCH, [(h, w) for w, h in COCO_WH])
+    p4, s4 = weights_yolov4.make(cfg, 0, torch.device("cuda"), imgs[:8])
+    dets["yolov4-608"] = (Detector(p4, s4, YoloConfig(num_classes=80, img_dim=V4_DIM,
+                                                      anchors=Y4.ANCHORS,
+                                                      anchor_masks=Y4.ANCHOR_MASKS),
+                                   precision="bf16", device="cuda", arch="yolov4"), imgs)
+    for model, (det, images) in dets.items():
+        _, launches = counted({"conv_down": CD.conv_down}, lambda: det.detect(images))
+        check(launches["conv_down"] == CONV_DOWN_LAUNCHES[model],
+              f"{model}: {launches['conv_down']} conv_down launches in one detect, want "
+              f"{CONV_DOWN_LAUNCHES[model]}")
+        log(f"conv_down {model}: one bf16 detect of {len(images)} images launches the kernel "
+            f"{launches['conv_down']} times | {card}")
+    del dets
+    torch.cuda.empty_cache()
+
+
+def conv_down_main():
+    """Phase 3b alone (``--conv-down``): builds and checks its source, and the
+    sources a detect runs."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device; this check runs only on a GPU")
+    from yolo_v3_tpu_torch.ops import _build
+
+    card = card_line()
+    log(card)
+    sources = ("conv_down", "fused_res_block", "conv_p2d", "letterbox")
+    with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc per source
+        libs = list(pool.map(_build.build, sources))
+    check_build(card, libs[:1], sources[:1])
+    summary = conv_down_path(card)
+    conv_down_launches(card)
+    print(json.dumps({"conv_down": summary}))
+    print(json.dumps({"ok": True, "device": device_entry()}))
+
+
 def check_yolov4_kernels(card):
     """Phase 11, kernels: the Mish residual block at YOLOv4-608's five CSP
     shapes (Cmid = C from stage 1 on) and the bf16 padded-2D convs at every
@@ -1086,6 +1255,7 @@ def yolov4_path(card):
     from portbench import weights_yolov4
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models import yolov4 as Y4
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
     from yolo_v3_tpu_torch.ops.letterbox import letterbox_batch
@@ -1103,7 +1273,7 @@ def yolov4_path(card):
                         anchor_masks=Y4.ANCHOR_MASKS)
     det = Detector(params, state, config, precision="bf16", device="cuda", arch="yolov4")
     counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                "conv3x3_p2d": FC.conv3x3_p2d}
+                "conv3x3_p2d": FC.conv3x3_p2d, "conv_down": CD.conv_down}
     rows, launches = counted(dict(counters, letterbox=letterbox_batch),
                              lambda: det.detect(imgs))
     check(launches == dict(V4_LAUNCHES, letterbox=1),
@@ -1145,7 +1315,7 @@ def yolov4_path(card):
     return [dict(name=name, route="cuda", source=f"yolo_v3_tpu_torch/{source[name]}",
                  replaces=None, model="yolov4-608", batch=BATCH,
                  launches=launches[name.split("_bf16")[0]], **acc)
-            for name, acc in summary.items()]
+            for name, acc in summary.items()], launches
 
 
 def iou_xywh(a, b):
@@ -1295,6 +1465,7 @@ def serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8):
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import quantized as Q
     from yolo_v3_tpu_torch.models import weights as W
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import entry_kernel as EK
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops import postprocess as P
@@ -1306,7 +1477,7 @@ def serving_options_path(card, weights_path, imgs, qtree, x_i8, summary_i8):
     i8_counters = {"fused_entry": EK.fused_entry, "conv1x1_p2d": FC.conv1x1_p2d,
                    "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d}
     bf_counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                   "conv3x3_p2d": FC.conv3x3_p2d}
+                   "conv3x3_p2d": FC.conv3x3_p2d, "conv_down": CD.conv_down}
 
     def as_rows(res):
         return [r[:, [6, 0, 1, 2, 3, 5, 4]] for r in P.detections_to_lists(res)]
@@ -1730,6 +1901,7 @@ def training_path(card, weights_path, imgs, work):
     """Phase 7: the port's training path at full width."""
     from yolo_v3_tpu_torch.detector import Detector
     from yolo_v3_tpu_torch.models.darknet import map_tree
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
     from yolo_v3_tpu_torch.train.checkpoint import get_latest_checkpoint
@@ -1885,8 +2057,8 @@ def training_path(card, weights_path, imgs, work):
 
     # serve the final checkpoint on the kernels
     counters = {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                "conv3x3_p2d": FC.conv3x3_p2d}
-    want = {"fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0),
+                "conv3x3_p2d": FC.conv3x3_p2d, "conv_down": CD.conv_down}
+    want = {"fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0, conv_down=0),
             "bf16": {k: BF16_LAUNCHES[k] for k in counters}}
     for precision in ("fp32", "bf16"):
         det = Detector.from_checkpoint(final_ckpt, config, device="cuda", precision=precision)
@@ -2071,6 +2243,7 @@ def eval_path(card, weights_path, qtree, work):
     from yolo_v3_tpu_torch.eval.coco_json import JsonPredictionWriter
     from yolo_v3_tpu_torch.eval.cocoeval import evaluate_map
     from yolo_v3_tpu_torch.eval.pipeline import STAGES, evaluate_detector, generate_results_file
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import entry_kernel as EK
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
@@ -2085,13 +2258,14 @@ def eval_path(card, weights_path, qtree, work):
     route = dict(batch_size=EVAL_BATCH, is_letterbox=True, use_native_loader=False)
     counters = {
         "int8": {"fused_entry": EK.fused_entry, "conv1x1_p2d": FC.conv1x1_p2d,
-                 "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d},
+                 "conv3x3_p2d": FC.conv3x3_p2d, "res_block_p2d": FC.res_block_p2d,
+                 "conv_down": CD.conv_down},
         "fp32": {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                 "conv3x3_p2d": FC.conv3x3_p2d},
+                 "conv3x3_p2d": FC.conv3x3_p2d, "conv_down": CD.conv_down},
         "bf16": {"fused_res_block": fused_res_block, "conv1x1_p2d": FC.conv1x1_p2d,
-                 "conv3x3_p2d": FC.conv3x3_p2d}}
-    per_forward = {"int8": INT8_LAUNCHES,
-                   "fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0),
+                 "conv3x3_p2d": FC.conv3x3_p2d, "conv_down": CD.conv_down}}
+    per_forward = {"int8": dict(INT8_LAUNCHES, conv_down=0),
+                   "fp32": dict(fused_res_block=23, conv1x1_p2d=0, conv3x3_p2d=0, conv_down=0),
                    "bf16": BF16_LAUNCHES}
     scenes = [ListDataset(lst).load_raw(i)["img"] for i in range(len(paths))]
     maps = {}
@@ -2284,13 +2458,14 @@ CLI_TRAIN = ["--dim", "416", "--multi-scale", "--batch-size", str(TRAIN_BATCH),
 
 
 def kernel_counters():
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops import entry_kernel as EK
     from yolo_v3_tpu_torch.ops import fused_conv as FC
     from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block
 
     return {"fused_res_block": fused_res_block, "fused_entry": EK.fused_entry,
             "conv1x1_p2d": FC.conv1x1_p2d, "conv3x3_p2d": FC.conv3x3_p2d,
-            "res_block_p2d": FC.res_block_p2d}
+            "res_block_p2d": FC.res_block_p2d, "conv_down": CD.conv_down}
 
 
 def cli_child(argv, deterministic):
@@ -2445,10 +2620,10 @@ def cli_serving(card, weights_path, imgs, qtree, work, eval_map):
     img = cv2.cvtColor(cv2.imread(scene), cv2.COLOR_BGR2RGB)
     n_batches = -(-len(paths) // EVAL_BATCH)
     want_launches = {
-        "detect int8": dict(INT8_LAUNCHES, fused_res_block=0),
+        "detect int8": dict(INT8_LAUNCHES, fused_res_block=0, conv_down=0),
         "detect bf16": dict(BF16_LAUNCHES, fused_entry=0, res_block_p2d=0),
-        "eval int8": {k: v * n_batches for k, v in dict(INT8_LAUNCHES,
-                                                        fused_res_block=0).items()}}
+        "eval int8": {k: v * n_batches for k, v in dict(INT8_LAUNCHES, fused_res_block=0,
+                                                        conv_down=0).items()}}
     for what, (out, res) in outs.items():
         check(res["launches"] == want_launches[what],
               f"cli {what}: launches {res['launches']}, want {want_launches[what]}")
@@ -2903,14 +3078,15 @@ SPACE_RANKS = 2             # 2 gloo ranks sharing card 0, as phase 9's
 # on its stripe; at data 2 every rank runs the whole net on its 4 images
 SPACE_LAUNCHES = {"bf16": dict(BF16_LAUNCHES, fused_entry=0, res_block_p2d=0),
                   "fp32": dict(fused_res_block=23, fused_entry=0, conv1x1_p2d=0,
-                               conv3x3_p2d=0, res_block_p2d=0),
-                  "int8": dict(INT8_LAUNCHES, fused_res_block=0)}
+                               conv3x3_p2d=0, res_block_p2d=0, conv_down=0),
+                  "int8": dict(INT8_LAUNCHES, fused_res_block=0, conv_down=0)}
 SPACE_LAUNCHES["int8u8"] = SPACE_LAUNCHES["int8"]      # the uint8 feed: the same kernels
 # phase 3's tolerances per kernel and input type (int8: bit-equal)
 SPY_TOL = {("fused_res_block", torch.float32): TOL[torch.float32],
            ("fused_res_block", torch.bfloat16): TOL[torch.bfloat16],
            ("conv1x1_p2d", torch.bfloat16): P2D_BF16_TOL,
            ("conv3x3_p2d", torch.bfloat16): P2D_BF16_TOL,
+           ("conv_down", torch.bfloat16): P2D_BF16_TOL,
            **{(k, torch.int8): dict(rtol=0.0, atol=0.0)
               for k in ("conv1x1_p2d", "conv3x3_p2d", "res_block_p2d", "fused_entry")}}
 
@@ -2930,8 +3106,9 @@ def replay_border(filled, hp, wp):
 
 def spy_kernels(model):
     """Wrap the model's kernel calls (float: the residual blocks through
-    ``darknet.fused_res_block`` and the p2d convs through each
-    ``_P2dConv``; int8: ``quantized.KERNELS``) to keep the inputs and
+    ``darknet.fused_res_block``, the p2d convs through each ``_P2dConv``,
+    and in bf16 the stem and downs through ``darknet.CD.conv_down``; int8:
+    ``quantized.KERNELS``) to keep the inputs and
     output of the first launch at each shape and count the launches there;
     returns (the captures, a function that undoes the wrapping).  The
     wrappers call the kernel wrappers as they are, so launch counts hold.
@@ -2939,6 +3116,7 @@ def spy_kernels(model):
     ``space``) is kept as :func:`replay_border` of what it wrote."""
     from yolo_v3_tpu_torch.models import darknet as D
     from yolo_v3_tpu_torch.models import quantized as Q
+    from yolo_v3_tpu_torch.ops import conv_down as CD
 
     seen = {}
 
@@ -2965,6 +3143,10 @@ def spy_kernels(model):
 
     block, kernels = D.fused_res_block, Q.KERNELS
     D.fused_res_block = wrap("fused_res_block", block, D.fused_res_block_ref)
+    # the model's view of ops/conv_down.py, so that the kernel wrapper's own
+    # module (and its launch counter) stays as it is
+    D.CD = types.SimpleNamespace(**dict(vars(CD), conv_down=wrap("conv_down", CD.conv_down,
+                                                                 CD.conv_down_ref)))
     Q.KERNELS = Q.Int8Ops(*(wrap(name, fn, plain) for name, fn, plain in zip(
         ("fused_entry", "conv1x1_p2d", "conv3x3_p2d", "res_block_p2d"), kernels, Q.PLAIN)))
     convs = [m for m in model.modules() if isinstance(m, D._P2dConv)]
@@ -2973,7 +3155,7 @@ def spy_kernels(model):
         m.fns = (wrap("conv3x3_p2d" if m.taps == 9 else "conv1x1_p2d", *m.fns), m.fns[1])
 
     def undo():
-        D.fused_res_block, Q.KERNELS = block, kernels
+        D.fused_res_block, Q.KERNELS, D.CD = block, kernels, CD
         for m, f in zip(convs, fns):
             m.fns = f
 
@@ -2993,6 +3175,10 @@ def launch_cost(name, args, out):
                 x.element_size() * (2 * b * h * w * c + 10 * c * cmid + cmid + c),
                 NAMES[x.dtype])
     kind = "int8" if x.dtype == torch.int8 else "bf16"
+    if name == "conv_down":                     # x and out NCHW, a 3x3 weight
+        b, n, ho, wo = out.shape
+        return (2 * b * ho * wo * n * 9 * x.shape[1],
+                2 * (x.numel() + args[1].numel() + out.numel()) + 4 * n, kind)
     if name == "fused_entry":
         b, h, w = out.shape[:3]                 # a stripe's window is not square
         ops = sum(2 * b * h * w * (4 if k == "stem" else 1) * kh * kw * cin * cout
@@ -3019,6 +3205,7 @@ def check_and_time(seen):
     ``plan_tiles`` by
     :func:`plan_line`) and the device ms of the kernel and of the plain
     version at that shape beside the bound: one dict a shape."""
+    from yolo_v3_tpu_torch.ops import conv_down as CD
     from yolo_v3_tpu_torch.ops.fused_res_block import plan as res_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3036,6 +3223,9 @@ def check_and_time(seen):
         elif name in ("conv1x1_p2d", "conv3x3_p2d"):
             plan = "tiles " + plan_line(x.shape[0], x.shape[1], args[2].shape[0],
                                         9 if name == "conv3x3_p2d" else 1, x.dtype, sms)[0]
+        elif name == "conv_down" and x.shape[1] != CD.STEM_CHANNELS:
+            pad = args[4] if isinstance(args[4], int) else args[4][0]
+            plan = f"tiles {CD.plan_on_device(*x.permute(0, 2, 3, 1).shape, got.shape[1], pad)}"
         else:
             plan = ""
         ops, nbytes, kind = launch_cost(name, args, got)
@@ -3389,6 +3579,7 @@ def main():
     summary = check_kernel(card)
     summary_bf16 = check_bf16_p2d_kernels(card)
     summary_i8 = check_int8_kernels(card)
+    summary_down = conv_down_path(card)
 
     work = os.path.join(os.path.dirname(os.path.abspath(yolo_v3_tpu_torch.__file__)),
                         "build", "smoke")
@@ -3415,7 +3606,7 @@ def main():
         mesh_launches = space_path(card, weights_path, imgs, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    v4_kernels = yolov4_path(card)
+    v4_kernels, v4_launches = yolov4_path(card)
 
     kernels = [dict(name=f"fused_res_block_{NAMES[dt]}", route="cuda",
                     source="yolo_v3_tpu_torch/csrc/fused_res_block.cu",
@@ -3456,6 +3647,18 @@ def main():
     kernels += options
     kernels.append(letterbox_entry)
     kernels += v4_kernels
+    # launches: one detect's, counted in phase 4 (YOLOv3) and phase 11 (YOLOv4)
+    down_launches = {"yolov3-416": launches[torch.bfloat16]["conv_down"],
+                     "yolov4-608": v4_launches["conv_down"]}
+    # and YOLOv3's in phase 10's bf16 runs, as the other kernels' mesh_runs
+    down_mesh = {"yolov3-416": {run: kernels_of["conv_down"]
+                                for run, kernels_of in mesh_launches.items()
+                                if run.split("/")[1] == "bf16"}}
+    kernels += [dict(name=f"conv_down_bf16_{model}", route="cuda",
+                     source="yolo_v3_tpu_torch/csrc/conv_down.cu", replaces=None,
+                     batch=BATCH, launches=down_launches[model], **acc,
+                     **({"mesh_runs": down_mesh[model]} if model in down_mesh else {}))
+                for model, acc in summary_down.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_entry()}))
 
@@ -3473,14 +3676,14 @@ def yolov4_main():
 
     card = card_line()
     log(card)
-    sources = ("fused_res_block", "conv_p2d", "letterbox")
+    sources = ("fused_res_block", "conv_p2d", "letterbox", "conv_down")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc per source
         list(pool.map(_build.build, sources))
     for name in sources:
         _build.load(name)
     log(f"build: {', '.join(sources)} {time.perf_counter() - t0:.2f} s | {card}")
-    print(json.dumps({"kernels": yolov4_path(card)}))
+    print(json.dumps({"kernels": yolov4_path(card)[0]}))
     print(json.dumps({"ok": True, "device": device_entry()}))
 
 
@@ -3495,5 +3698,7 @@ if __name__ == "__main__":
         space_worker(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--yolov4"]:
         yolov4_main()
+    elif sys.argv[1:2] == ["--conv-down"]:
+        conv_down_main()
     else:
         main()

@@ -16,7 +16,8 @@ time (CUDA-graph replay) beside the double-rounding bf16 conv + leaky:
   chunk) or 32, one TF32 conv each, the partial sums added in fp32;
 - fp32: TF32 off (the reference's own algorithm);
 and, on the forward's inputs, the folded model's own conv module
-(``models/darknet.py::_ConvBias``, chunks of ``TF32_K_CHANNELS``).
+(``models/darknet.py::_ConvBias``: the kernel of ``ops/conv_down.py``) and
+its plain version (chunks of ``TF32_K_CHANNELS``).
 Needs CUDA; imports no JAX.
 """
 
@@ -135,7 +136,8 @@ def report(card, inputs, name, x, w, b, stride, module):
         modes += [(f"tf32 split K {c}", lambda c=c: mode_split(c)) for c in CHUNKS]
         modes += [("fp32", mode_fp32), ("double rounding bf16", double_rounding)]
         if module is not None:
-            modes.append(("_ConvBias", lambda: module(x)))
+            modes += [("_ConvBias", lambda: module(x)),
+                      ("_ConvBias plain", lambda: module(x, plain=True))]
         for label, fn in modes:
             share = (ordered(fn()) != ref).float().mean().item()
             row.append(f"{label}: {share:.5%} differ, {S.device_ms(fn):.4f} ms")

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from yolo_v3_tpu_torch.models import darknet as D
+from yolo_v3_tpu_torch.ops import activations as A
+from yolo_v3_tpu_torch.ops import conv_down as CD
 from yolo_v3_tpu_torch.ops import entry_kernel as EK
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops import letterbox as L
@@ -635,17 +637,18 @@ def _small_net(dtype, dev):
 
 def test_bf16_forward_runs_heads_on_the_p2d_kernels(dev):
     """A bf16 forward launches one fused residual block per block, 14
-    conv1x1_p2d (per head three 1x1s and the det, plus the two ups) and 9
-    conv3x3_p2d; its heads are within 5e-2 * max|head| of the plain path."""
+    conv1x1_p2d (per head three 1x1s and the det, plus the two ups), 9
+    conv3x3_p2d and 6 conv_down (the stem and the 5 downs); its heads are
+    within 5e-2 * max|head| of the plain path."""
     model = _small_net(torch.bfloat16, dev)
     x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(1)).to(
         dev, torch.bfloat16)
-    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d)
+    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d, CD.conv_down)
     before = [f.launches for f in counters]
     with torch.inference_mode():
         heads = model(x)
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(counters, before)] == [5, 14, 9]
+        assert [f.launches - b for f, b in zip(counters, before)] == [5, 14, 9, 6]
         plain = model(x, plain=True)
     for h, p in zip(heads, plain):
         assert h.dtype == torch.bfloat16 and h.shape == p.shape
@@ -679,9 +682,20 @@ def test_fp32_heads_do_not_depend_on_global_tf32(dev):
 # the folded forward, tests/test_torch_bf16_single_rounding.py on the CPU)
 # ---------------------------------------------------------------------------
 
-# (cin, cout, stride, H = W) of the stem and the 5 downs of YOLOv3-416
-C1_CONVS = [(3, 32, 1, 416), (32, 64, 2, 416), (64, 128, 2, 208), (128, 256, 2, 104),
-            (256, 512, 2, 52), (512, 1024, 2, 26)]
+# (cin, cout, stride, H = W, activation, batch) of the stem and the 5 downs
+# of YOLOv3-416; of YOLOv4-608's stem and 5 Mish downs and PANet's 2 leaky
+# stride-2 convs; and of down0 at the cells' batch of 32
+C1_CONVS = [(3, 32, 1, 416, "leaky", 2), (32, 64, 2, 416, "leaky", 2),
+            (64, 128, 2, 208, "leaky", 2), (128, 256, 2, 104, "leaky", 2),
+            (256, 512, 2, 52, "leaky", 2), (512, 1024, 2, 26, "leaky", 2),
+            (3, 32, 1, 608, "mish", 2), (32, 64, 2, 608, "mish", 2),
+            (64, 128, 2, 304, "mish", 2), (128, 256, 2, 152, "mish", 2),
+            (256, 512, 2, 76, "mish", 2), (512, 1024, 2, 38, "mish", 2),
+            (128, 256, 2, 76, "leaky", 2), (256, 512, 2, 38, "leaky", 2),
+            (32, 64, 2, 416, "leaky", 32)]
+C1_IDS = ["stem", "down0", "down1", "down2", "down3", "down4",
+          "v4-stem", "v4-down0", "v4-down1", "v4-down2", "v4-down3", "v4-down4",
+          "pan-down0", "pan-down1", "down0-b32"]
 
 
 def _ordered_bf16(a):
@@ -689,28 +703,157 @@ def _ordered_bf16(a):
     return torch.where(bits >= 0x8000, -(bits & 0x7FFF), bits)
 
 
-@pytest.mark.parametrize("cin,cout,stride,hw", C1_CONVS,
-                         ids=["stem", "down0", "down1", "down2", "down3", "down4"])
-def test_bf16_stem_and_downs_round_once_on_the_card(dev, cin, cout, stride, hw):
-    """Against an fp32 conv with TF32 off, bias and leaky in fp32, one
-    rounding: any difference on under 0.1% of outputs, and none beyond one
-    bf16 step plus 2^-12 (fp32 summation order near zero)."""
+def _c1_conv(cin, cout, stride, act, dev):
     gen = torch.Generator().manual_seed(cin)
     w = (torch.randn(3, 3, cin, cout, generator=gen) / np.sqrt(9 * cin)).to(torch.bfloat16)
     b = (torch.randn(cout, generator=gen) * 0.3).to(torch.bfloat16)
-    x = torch.randn(2, cin, hw, hw, generator=gen).to(torch.bfloat16)
-    conv = D._ConvBias({"w": w, "b": b}, stride=stride).to(dev)
-    x = x.to(dev).contiguous(memory_format=torch.channels_last)
-    with torch.no_grad():
-        got = conv(x)
-        with full_fp32():
-            ref = torch.nn.functional.conv2d(x.float(), conv.weight.float(), None, stride, 1)
-        ref = torch.nn.functional.leaky_relu(ref + conv.bias.float()[:, None, None], 0.1)
-        ref = ref.to(torch.bfloat16)
+    return D._ConvBias({"w": w, "b": b}, stride=stride, act=act).to(dev), gen
+
+
+def _c1_input(gen, b, cin, h, w, dev):
+    x = torch.randn(b, cin, h, w, generator=gen).to(torch.bfloat16)
+    return x.to(dev).contiguous(memory_format=torch.channels_last)
+
+
+def _single_rounding(conv, x, pad):
+    """An fp32 conv with TF32 off, bias and the activation in fp32
+    (``activations.mish`` for Mish), one rounding."""
+    with full_fp32():
+        ref = torch.nn.functional.conv2d(x.float(), conv.weight.float(), None, conv.stride, pad)
+    ref = ref + conv.bias.float()[:, None, None]
+    if conv.act == "mish":
+        ref = A.mish(ref)
+    elif conv.act == "leaky":
+        ref = torch.nn.functional.leaky_relu(ref, 0.1)
+    return ref.to(torch.bfloat16)
+
+
+def _assert_rounds_once(got, ref):
+    """Any difference on under 0.1% of outputs, and none beyond one bf16
+    step plus 2^-12 (fp32 summation order near zero)."""
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
     assert ((got.float() - ref.float()).abs() <= step + 2.0 ** -12).all()
     assert (_ordered_bf16(got) != _ordered_bf16(ref)).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("cin,cout,stride,hw,act,batch", C1_CONVS, ids=C1_IDS)
+def test_bf16_stem_and_downs_round_once_on_the_card(dev, cin, cout, stride, hw, act, batch):
+    """The conv kernel against an fp32 conv with TF32 off, bias and the
+    activation in fp32, one rounding: any difference on under 0.1% of
+    outputs, and none beyond one bf16 step plus 2^-12."""
+    conv, gen = _c1_conv(cin, cout, stride, act, dev)
+    x = _c1_input(gen, batch, cin, hw, hw, dev)
+    before = CD.conv_down.launches
+    with torch.no_grad():
+        got = conv(x)
+        ref = _single_rounding(conv, x, 1)
+    assert CD.conv_down.launches == before + 1
+    _assert_rounds_once(got, ref)
+    with torch.no_grad():          # the plain version: the chunked TF32 convs
+        _assert_rounds_once(conv(x, plain=True), ref)
+
+
+@pytest.mark.parametrize("cin,cout,stride", [(3, 32, 1), (32, 64, 2), (256, 512, 2)],
+                         ids=["stem", "down0", "down3"])
+def test_conv_down_kernel_on_a_stripe_with_its_halo(dev, cin, cout, stride):
+    """``pad = (0, 1)``, the space-sharded stripe that carries its halo rows
+    (an odd number of rows at stride 2): the kernel and the plain version
+    both round once against the fp32 reference with the same padding."""
+    conv, gen = _c1_conv(cin, cout, stride, "leaky", dev)
+    rows = 2 * 13 + 1 if stride == 2 else 26 + 2
+    x = _c1_input(gen, 2, cin, rows, 56, dev)
+    with torch.no_grad():
+        got = CD.conv_down(x, conv.weight, conv.bias, stride, (0, 1), "leaky")
+        plain = CD.conv_down_ref(x, conv.weight, conv.bias, stride, (0, 1), "leaky")
+        ref = _single_rounding(conv, x, (0, 1))
+    assert got.shape == plain.shape == ref.shape
+    _assert_rounds_once(got, ref)
+    _assert_rounds_once(plain, ref)
+
+
+# (cin, cout, H, W) of downs at every tile shape and width: a ragged grid, and
+# the 13^2 / 19^2 outputs of the last downs
+TILE_CASES = [(64, 128, 26, 38), (512, 1024, 26, 26), (256, 512, 38, 38)]
+
+
+@pytest.mark.parametrize("variant", range(len(CD.DOWN_TILES)))
+@pytest.mark.parametrize("wt", CD.TILE_WIDTHS)
+@pytest.mark.parametrize("cin,cout,h,w", TILE_CASES)
+def test_conv_down_kernel_every_tile_shape(dev, variant, wt, cin, cout, h, w):
+    if wt > 64 * CD.DOWN_TILES[variant][0]:
+        pytest.skip("the tile is narrower than this width")
+    conv, gen = _c1_conv(cin, cout, 2, "leaky", dev)
+    x = _c1_input(gen, 2, cin, h, w, dev)
+    wk, bias32 = CD.k_major(conv.weight, conv.bias)
+    with torch.no_grad():
+        got = CD._launch(x, wk, bias32, 2, 1, "leaky", tiles=(variant, wt))
+        ref = _single_rounding(conv, x, 1)
+    _assert_rounds_once(got, ref)
+
+
+def test_conv_down_planner_on_the_card_matches_plan_tiles(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c, n, hw in [(32, 64, 416), (64, 128, 208), (128, 256, 104), (256, 512, 52),
+                     (512, 1024, 26), (32, 64, 608), (256, 512, 76), (512, 1024, 38)]:
+        for b in (1, 8, 32):
+            assert CD.plan_on_device(b, hw, hw, c, n) == CD.plan_tiles(b, hw, hw, c, n, sms=sms)
+
+
+def test_conv_down_kernel_rejects_bad_operands(dev):
+    conv, gen = _c1_conv(64, 128, 2, "leaky", dev)
+    x = _c1_input(gen, 1, 64, 16, 16, dev)
+    wk, bias32 = CD.k_major(conv.weight, conv.bias)
+    before = CD.conv_down.launches
+    with pytest.raises(TypeError):                 # fp32 input
+        CD._launch(x.float(), wk, bias32, 2, 1, "leaky")
+    with pytest.raises(ValueError, match="NHWC"):  # NCHW-contiguous, not NHWC
+        CD._launch(x.contiguous(), wk, bias32, 2, 1, "leaky")
+    with pytest.raises(ValueError):                # odd W
+        CD._launch(x[..., :15].contiguous(memory_format=torch.channels_last), wk, bias32,
+                   2, 1, "leaky")
+    with pytest.raises(ValueError):                # C % 8 != 0
+        conv12, _ = _c1_conv(12, 16, 2, "leaky", dev)
+        CD.conv_down(_c1_input(gen, 1, 12, 16, 16, dev), conv12.weight, conv12.bias, 2, 1)
+    with pytest.raises(ValueError):                # a down at stride 1
+        CD._launch(x, wk, bias32, 1, 1, "leaky")
+    stem, _ = _c1_conv(3, 32, 1, "leaky", dev)     # a stem of odd W
+    with pytest.raises(ValueError, match="even W"):
+        CD.conv_down(_c1_input(gen, 1, 3, 12, 13, dev), stem.weight, stem.bias, 1, 1)
+    with pytest.raises(ValueError):                # padding 2
+        CD._launch(x, wk, bias32, 2, 2, "leaky")
+    with pytest.raises(ValueError):                # the stem's layout for a down
+        CD._launch(x, wk.reshape(128, -1)[:, :32].contiguous(), bias32, 2, 1, "leaky")
+    with pytest.raises(ValueError):                # no such activation
+        CD._launch(x, wk, bias32, 2, 1, "relu")
+    # the model sends every bf16 conv of a CUDA batch to the kernel, which
+    # raises for one it does not take: no plain version runs in its place
+    with pytest.raises(ValueError, match="even W"):
+        conv(x[..., :15].contiguous(memory_format=torch.channels_last))
+    s1, _ = _c1_conv(64, 128, 1, "leaky", dev)     # a stride-1 3x3 of 64 channels
+    with pytest.raises(ValueError, match="stride 2"):
+        s1(x)
+    assert CD.conv_down.launches == before
+
+
+@pytest.mark.parametrize("inference", [False, True], ids=["no_grad", "inference_mode"])
+def test_conv_down_weight_layout_follows_in_place_writes(dev, inference):
+    """The kernel's weight layout and float32 bias are made once, and a write
+    to the weight or the bias in place shows in the next call's output, also
+    under ``torch.inference_mode()``."""
+    with torch.inference_mode(inference):
+        conv, gen = _c1_conv(64, 128, 2, "leaky", dev)
+        x = _c1_input(gen, 2, 64, 32, 32, dev)
+        with torch.no_grad():
+            before = conv(x)
+            assert torch.equal(conv(x), before)
+            conv.weight.mul_(-1)
+            conv.bias.mul_(2)
+            after = conv(x)
+            fresh = D._ConvBias({"w": conv.weight.permute(2, 3, 1, 0).cpu(),
+                                 "b": conv.bias.cpu()}, stride=2).to(dev)
+            assert torch.equal(after, fresh(x))
+            assert not torch.equal(after, before)
 
 
 # ---------------------------------------------------------------------------
@@ -1020,7 +1163,8 @@ def test_mish_conv_kernel_rejects_int8(dev):
 def test_yolov4_forward_runs_on_the_kernels(dev):
     """A bf16 YOLOv4 forward launches one Mish block per CSP block (23) and
     51 padded-2D convs (38 1x1: the split pairs, transitions and fuses, the
-    neck's 1x1s and the dets; 13 3x3); its heads are within 5e-2 *
+    neck's 1x1s and the dets; 13 3x3) and 8 conv_down (the stem, the 5 Mish
+    downs and PANet's 2 stride-2 convs); its heads are within 5e-2 *
     max|head| of the plain path."""
     from yolo_v3_tpu_torch.models import yolov4 as Y4
 
@@ -1029,12 +1173,12 @@ def test_yolov4_forward_runs_on_the_kernels(dev):
                                           torch.bfloat16, dev)).eval()
     x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(
         dev, torch.bfloat16)
-    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d)
+    counters = (fused_res_block, FC.conv1x1_p2d, FC.conv3x3_p2d, CD.conv_down)
     before = [f.launches for f in counters]
     with torch.inference_mode():
         heads = model(x)
         torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(counters, before)] == [23, 38, 13]
+        assert [f.launches - b for f, b in zip(counters, before)] == [23, 38, 13, 8]
         plain = model(x, plain=True)
     for h, p in zip(heads, plain):
         assert h.dtype == torch.bfloat16 and h.shape == p.shape

@@ -9,9 +9,10 @@ images and returns NHWC raw heads; inside, activations are NCHW tensors in
 ``torch.channels_last`` memory format, which is physically NHWC.
 
 Every residual block runs on :func:`~yolo_v3_tpu_torch.ops.fused_res_block.
-fused_res_block`, the hand-written CUDA kernel on a card.  The stem and the
-stride-2 downsamples run on ``F.conv2d``.  In bf16 the heads, their
-detection convs and the two upsample convs run on the padded-2D kernels
+fused_res_block`, the hand-written CUDA kernel on a card.  In bf16 the stem
+and the stride-2 downsamples run on the conv kernel of
+:mod:`~yolo_v3_tpu_torch.ops.conv_down`, and the heads, their detection
+convs and the two upsample convs on the padded-2D kernels
 (:mod:`~yolo_v3_tpu_torch.ops.fused_conv`), which add the bias and apply
 leaky in float32 and round once, as the reference's ``_conv_bias_leaky``
 does; in fp32 they run on ``F.conv2d``, and the whole forward runs with TF32
@@ -38,10 +39,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from yolo_v3_tpu_torch.ops import conv_down as CD
 from yolo_v3_tpu_torch.ops import fused_conv as FC
 from yolo_v3_tpu_torch.ops.fused_res_block import fused_res_block, fused_res_block_ref
 from yolo_v3_tpu_torch.parallel.halo import edge_rows, gather_rows, halo_exchange
-from yolo_v3_tpu_torch.utils.precision import full_fp32, tf32_conv
+from yolo_v3_tpu_torch.utils.precision import full_fp32
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -52,12 +54,6 @@ DARKNET53_BLOCKS: Tuple[int, ...] = (1, 2, 8, 8, 4)
 LEAKY_SLOPE = 0.1
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1    # torch BatchNorm2d default: new = (1-m)*old + m*batch
-# The tensor cores truncate their fp32 accumulation, and the rounding points
-# that this moves grow with the sum's length: one TF32 conv over the 4608
-# products of down4 moves 0.38% of its bf16 outputs off the single-rounding
-# result, chunks of 64 input channels (576 products) at most 0.063%, at the
-# forward's shapes on an H100 (scripts/c1_conv_modes.py).
-TF32_K_CHANNELS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -472,20 +468,18 @@ class YoloNet(nn.Module):
 # ---------------------------------------------------------------------------
 
 class _ConvBias(nn.Module):
-    """Conv + bias (+ LeakyReLU) on NCHW channels_last activations, from an
-    HWIO weight; the output keeps the input's dtype.
+    """Conv + bias + activation (``leaky``, ``mish`` or ``linear``) on NCHW
+    channels_last activations, from an HWIO weight; the output keeps the
+    input's dtype.
 
-    In bf16 (the stem and the stride-2 downs) the conv runs in fp32 on the
-    bf16 values, with TF32 allowed for those calls alone (a bf16 value is
-    exact in TF32, so the products are exact), in chunks of
-    ``TF32_K_CHANNELS`` input channels whose partial sums add in fp32; the
-    bias and leaky follow in fp32 and the result is rounded to bf16 once,
-    as the reference's ``_conv_bias_leaky`` does.  The fp32 weight chunks
-    are made once and kept until the weight moves or is written in place
-    (an inference tensor has no version counter: its chunks are made anew
-    on every call, as ``ops/fused_conv.py::k_major`` does)."""
+    In bf16 (the stem and the stride-2 downs) conv, bias and activation
+    round once, as the reference's ``_conv_bias_leaky`` does: on a card on
+    the hand-written kernel (:func:`~yolo_v3_tpu_torch.ops.conv_down.
+    conv_down`, which raises for a conv it does not take), and on the CPU
+    or with ``plain=True`` on its plain version, cuDNN convs in fp32 over
+    chunks of input channels, bias and activation in fp32, one cast."""
 
-    def __init__(self, p: Params, stride: int = 1, leaky: bool = True):
+    def __init__(self, p: Params, stride: int = 1, act: str = "leaky"):
         super().__init__()
         w = p["w"]
         self.register_buffer("weight", w.permute(3, 2, 0, 1).contiguous(
@@ -493,24 +487,9 @@ class _ConvBias(nn.Module):
         self.register_buffer("bias", p["b"].clone())
         self.stride = stride
         self.pad = (w.shape[0] - 1) // 2
-        self.leaky = leaky
-        self._chunks = None
+        self.act = act
 
-    def _fp32_chunks(self):
-        w = self.weight
-
-        def make():
-            return [w[:, c:c + TF32_K_CHANNELS].float()
-                    for c in range(0, w.shape[1], TF32_K_CHANNELS)]
-
-        if w.is_inference():
-            return make()
-        key = (w.data_ptr(), w._version)
-        if self._chunks is None or self._chunks[0] != key:
-            self._chunks = (key, make())
-        return self._chunks[1]
-
-    def forward(self, x, mesh=None):
+    def forward(self, x, mesh=None, plain=False):
         """``mesh``: under ``space`` > 1, ``x`` is a stripe of rows and a
         3x3 conv reads its halo from the neighbouring stripes."""
         pad = self.pad
@@ -518,19 +497,11 @@ class _ConvBias(nn.Module):
             x, pad = _halo(x, self.stride, mesh), (0, pad)
         if x.dtype != torch.bfloat16:
             y = F.conv2d(x, self.weight, self.bias, self.stride, pad)
-            return self._act(y)
-        y = None
-        with tf32_conv():
-            for c, w in zip(range(0, x.shape[1], TF32_K_CHANNELS), self._fp32_chunks()):
-                part = F.conv2d(x[:, c:c + TF32_K_CHANNELS].float(), w, None,
-                                self.stride, pad)
-                y = part if y is None else y + part
-        y = y + self.bias.float()[:, None, None]
-        return self._act(y).to(torch.bfloat16)
-
-    def _act(self, y):
-        """The activation on the float conv result (a subclass's to change)."""
-        return F.leaky_relu(y, LEAKY_SLOPE) if self.leaky else y
+            return CD.activate_(y, self.act)
+        if plain or x.device.type == "cpu":
+            return CD.conv_down_ref(x, self.weight, self.bias, self.stride, pad, self.act)
+        x = x.contiguous(memory_format=torch.channels_last)
+        return CD.conv_down(x, self.weight, self.bias, self.stride, pad, self.act)
 
 
 class _ResBlock(nn.Module):
@@ -568,7 +539,7 @@ class _Head(nn.Module):
     def __init__(self, hp: Params):
         super().__init__()
         self.convs = nn.ModuleList(_ConvBias(hp[f"conv{i}"]) for i in range(6))
-        self.det = _ConvBias(hp["det"], leaky=False)
+        self.det = _ConvBias(hp["det"], act="linear")
 
     def forward(self, x, mesh=None):
         for i, conv in enumerate(self.convs):
@@ -671,10 +642,10 @@ class YoloNetFolded(nn.Module):
         with exact:
             res_block = fused_res_block_ref if plain else fused_res_block
             y = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            y = self.stem(y, mesh)
+            y = self.stem(y, mesh, plain)
             routes: List[torch.Tensor] = []
             for i, (down, blocks) in enumerate(zip(self.downs, self.stages)):
-                y = down(y, mesh)
+                y = down(y, mesh, plain)
                 for blk in blocks:
                     y = blk(y, res_block, mesh)
                 if i >= 2:

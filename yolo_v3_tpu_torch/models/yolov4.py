@@ -31,9 +31,10 @@ Heads return coarse first (19, 38, 76 at 608) with anchor masks (6, 7, 8),
 takes them in YOLOv3's order.
 
 :class:`YoloV4Folded` serves the BN-folded tree in bf16: the stem, the five
-Mish downs and PANet's two leaky stride-2 convs on cuDNN with one rounding
-(``darknet._ConvBias``), the 23 CSP blocks on the fused residual-block
-kernel with Mish (``ops/fused_res_block.py``), every other conv (the CSP
+Mish downs and PANet's two leaky stride-2 convs on the conv kernel of
+``ops/conv_down.py`` with one rounding (``darknet._ConvBias``), the 23 CSP
+blocks on the fused residual-block kernel with Mish
+(``ops/fused_res_block.py``), every other conv (the CSP
 1x1s with Mish, the neck's 1x1s and 3x3s with leaky, the detection convs
 linear) on the padded-2D kernels (``ops/fused_conv.py``), the split pair as
 one launch with both weight sets, and SPP as ``max_pool2d`` (5, then 5 twice
@@ -233,18 +234,6 @@ def apply_yolov4(params: Params, state: Params, x: torch.Tensor,
 # The folded forward on the kernels
 # ---------------------------------------------------------------------------
 
-class _CudnnConv(D._ConvBias):
-    """A stride-2 (or the stem's) conv on cuDNN with one rounding, with Mish
-    or leaky (``darknet._ConvBias``)."""
-
-    def __init__(self, p: Params, stride: int, act: str):
-        super().__init__(p, stride=stride, leaky=act == "leaky")
-        self.act = act
-
-    def _act(self, y):
-        return A.mish_(y) if self.act == "mish" else super()._act(y)
-
-
 class _P2d(D._P2dConv):
     """A stride-1 1x1 or 3x3 conv on the padded-2D layout with an activation
     by name; out in the weight's dtype."""
@@ -277,7 +266,7 @@ class _Block(D._ResBlock):
 class _CspStage(nn.Module):
     def __init__(self, sp: Params):
         super().__init__()
-        self.down = _CudnnConv(sp["down"], 2, "mish")
+        self.down = D._ConvBias(sp["down"], 2, act="mish")
         self.part = sp["split0"]["w"].shape[-1]
         # the split pair reads one input: one launch, split0's channels first
         self.split = _P2d({k: torch.cat([sp["split0"][k], sp["split1"][k]], -1)
@@ -289,7 +278,7 @@ class _CspStage(nn.Module):
     def forward(self, x, plain):
         """NCHW (channels_last) in -> (the stage's output in the padded-2D
         layout, its [B, H, W])."""
-        y = self.down(x).permute(0, 2, 3, 1)                  # NHWC view
+        y = self.down(x, plain=plain).permute(0, 2, 3, 1)     # NHWC view
         g = tuple(y.shape[:3])
         ab = self.split(FC.pack_p2d(y), g, plain)
         t = FC.unpack_p2d(ab[:, self.part:], *g).contiguous()
@@ -313,7 +302,7 @@ class YoloV4Folded(nn.Module):
     def __init__(self, params: Params):
         super().__init__()
         bk, nk = params["backbone"], params["neck"]
-        self.stem = _CudnnConv(bk["stem"], 1, "mish")
+        self.stem = D._ConvBias(bk["stem"], 1, act="mish")
         self.stages = nn.ModuleList(_CspStage(bk[f"stage{i}"]) for i in range(D._num_stages(bk)))
 
         def chain(pre, n):
@@ -324,15 +313,16 @@ class YoloV4Folded(nn.Module):
                                          chain("td0", 5))
         self.up1, self.lat1, self.td1 = (_P2d(nk["up1"], "leaky"), _P2d(nk["lat1"], "leaky"),
                                          chain("td1", 5))
-        self.down0, self.bu0 = _CudnnConv(nk["down0"], 2, "leaky"), chain("bu0", 5)
-        self.down1, self.bu1 = _CudnnConv(nk["down1"], 2, "leaky"), chain("bu1", 5)
+        self.down0, self.bu0 = D._ConvBias(nk["down0"], 2, act="leaky"), chain("bu0", 5)
+        self.down1, self.bu1 = D._ConvBias(nk["down1"], 2, act="leaky"), chain("bu1", 5)
         self.heads = nn.ModuleList(
             _Chain([_P2d(params[h]["conv"], "leaky"), _P2d(params[h]["det"], "linear")])
             for h in ("head0", "head1", "head2"))
 
     def forward(self, x: torch.Tensor, plain: bool = False):
         with span("backbone"):
-            y = self.stem(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+            y = self.stem(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last),
+                          plain=plain)
             routes = []
             for i, stage in enumerate(self.stages):
                 f2d, g = stage(y, plain)
@@ -351,7 +341,7 @@ class YoloV4Folded(nn.Module):
             return FC.pack_p2d(D.upsample2x_nearest(u))
 
         def down(conv, x2d, g):
-            return FC.pack_p2d(conv(_nchw(x2d, g)).permute(0, 2, 3, 1))
+            return FC.pack_p2d(conv(_nchw(x2d, g), plain=plain).permute(0, 2, 3, 1))
 
         x5 = self.spp_in(s4, g4, plain)
         with span("spp"):

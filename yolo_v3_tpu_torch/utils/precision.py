@@ -10,10 +10,11 @@ mixed (say cuDNN's conv and RNN flags differ); a switch that cannot be read
 is left alone, and the ``fp32_precision`` switch beside it turns TF32 off.
 
 :func:`tf32_conv` does the opposite for cuDNN convolutions alone: it allows
-TF32 inside a block.  The bf16 forward uses it for convolutions whose fp32
-operands hold bf16 values, which TF32 represents exactly, so the products
-are exact and the sums fp32 (the tensor cores truncate a long sum, so the
-caller keeps each one short: ``models/darknet.py::TF32_K_CHANNELS``).
+TF32 inside a block.  The plain version of the bf16 forward's stem and
+downs uses it for convolutions whose fp32 operands hold bf16 values, which
+TF32 represents exactly, so the products are exact and the sums fp32 (the
+tensor cores truncate a long sum, so the caller keeps each one short:
+``ops/conv_down.py::TF32_K_CHANNELS``).
 """
 
 from __future__ import annotations
